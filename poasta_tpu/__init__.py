@@ -1,8 +1,8 @@
-"""poasta_tpu — a TPU-native partial-order alignment framework.
+"""poasta_tpu — a partial-order alignment framework for NVIDIA GPUs.
 
 Capabilities mirror ``pangenome/poasta`` (fast, optimal gap-affine
 sequence-to-graph and partial-order alignment); the architecture is
-TPU-first: JAX/XLA/Pallas wavefront kernels for the alignment fill,
+accelerator-first: JAX/XLA wavefront fills plus a CUDA banded kernel,
 ``jax.sharding``/``shard_map`` data parallelism for read mapping at scale,
 and a host-side graph/IO substrate that preserves byte-identical output
 formats (FASTA-MSA, GFA v1/v1.1, DOT, GAF).

@@ -2,7 +2,7 @@
 
 The reference's A* touches only states near the optimal path; a dense fill
 touches all N·L cells.  This module recovers most of that work-efficiency
-on TPU while staying vectorized: every rank fills only a fixed-width
+on the device while staying vectorized: every rank fills only a fixed-width
 window of offsets chosen so that **all states whose completion-cost lower
 bound is ≤ UB lie inside the window**.  The lower bound combines
 min/max graph distance from the start and to the end (the same bubble
@@ -23,39 +23,30 @@ min/max lengths, so bucketing reads by length keeps bands tight.
 from __future__ import annotations
 
 import functools
-import os
 from typing import Optional, Tuple
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-
-# A/B toggle for measuring the insertion-run cap (scripts/runcap_ab.py
-# re-execs with it set); read once — ins_run_cap sits on the hot
-# per-fill dispatch path
-_NO_RUN_CAP = bool(os.environ.get("POASTA_NO_RUN_CAP"))
+from jax.sharding import PartitionSpec as PS
 
 from ..graphs.flat import FlatGraph
+from ..ops.banded_fill import (
+    banded_scores,
+    cuda_banded_exec,
+    cuda_fits,
+    cuda_width,
+    prepare_banded,
+    xla_banded_exec,
+)
 from ..ops.dp_rows import INF
+from ..utils import backend
 from .costs import GapAffine
 from .wavefront import DeviceGraph, dp_fill_scores
 
 
 def _round_up(v: int, m: int) -> int:
     return ((v + m - 1) // m) * m
-
-
-def _pad_to_pow2_blocks(rows: int, block: int = 64) -> int:
-    """Pad a row count up to a power-of-two number of kernel blocks, so
-    retry tails of varying sizes reuse a bounded set of compiled kernels.
-    Used by both the retry gather and the tier cost model — they must
-    agree for the model to predict actual retry cost."""
-    if rows <= 0:
-        return 0
-    blocks = 1
-    while blocks * block < rows:
-        blocks <<= 1
-    return blocks * block
 
 
 def _free_allowances(aln_type) -> Tuple[bool, int, int]:
@@ -245,331 +236,13 @@ def band_windows_drift(flat: FlatGraph, n_min: int, n_max: int,
     return wstart.astype(np.int32), width, s_ranks.astype(np.int32)
 
 
-def ins_run_cap(costs, ub: int, width: int) -> int:
-    """Power-of-two cap on insertion-run length for an ≤``ub`` fill, or 0
-    for no cap (cap would not be narrower than the band).
-
-    Any path of total cost ≤ ub spends at most K on one insertion run —
-    K = (ub-o)//e for one-piece.  For two-piece, the coupled recurrence
-    (``ops/dp_rows_2p.py``) opens at o1+e1 and extends every further
-    lane at ≥ min(e1, e2) — piece 2 is entered from piece 1 at e2 cost,
-    NOT at gap_open2, so a gap_open2-based bound would under-count and
-    silently break exactness — giving K = (ub-o1)//min(e1, e2).  So the
-    insertion scan only needs to look back 2^ceil(log2 K) lanes instead
-    of the whole band: fewer Hillis–Steele rounds (the dominant per-cell
-    cost, and ~5x heavier for the 2p coupled min-plus scan).  Truncation
-    only *removes* candidate predecessors, so the fills still only
-    over-estimate and the verify-and-retry exactness argument is
-    unchanged: if the returned score is ≤ ub, the true optimum is ≤ ub,
-    its insertion runs all fit the cap, and the fill saw its whole path.
-    """
-    if _NO_RUN_CAP:
-        return 0  # A/B toggle for measuring the cap (scripts/runcap_ab.py)
-    if getattr(costs, "is_two_piece", False):
-        o, e = costs.gap_open, min(costs.gap_extend, costs.gap_extend2)
-        K = max((ub - o) // e, 1) if ub >= o + e else 1
-    else:
-        o, e = costs.gap_open, costs.gap_extend
-        K = max((ub - o) // e, 1) if ub >= o + e else 1
-    cap = 1
-    while cap < K:
-        cap <<= 1
-    return cap if cap < width else 0
-
-
-# After a ladder falls through on INF (unalignable) rows, callers skip
-# the ladder for this many calls of that shape before re-probing — one
-# outlier batch must not disable capping for the process lifetime.
-LADDER_INF_SKIP = 8
-
-
-def run_capped_ladder(costs, L: int, ub0: int, fill_capped, fill_plain):
-    """Shared verify-and-retry insertion-run-cap ladder (exactness
-    argument in :func:`ins_run_cap`).
-
-    ``fill_capped(cap)`` returns a tuple whose first element is the
-    numpy score array, and must RAISE when the capped engine is
-    unavailable (the pallas dispatchers' engine='pallas' contract);
-    ``fill_plain()`` returns the exact uncapped result.  Scores above ub
-    (or INF rows, which may just be capped away) retry the whole batch
-    at 4x until the cap stops binding.  Returns ``(result, hint)``:
-
-    * positive int — every row verified; the max score (floored at 1 so
-      it can't collide with the 0 sentinel), for ub seeding
-    * ``0`` — fell through to the plain fill AND the exact result holds
-      INF (unalignable) rows.  No ub can ever verify those, so a caller
-      that re-scores similar batches should store the 0 and route this
-      shape straight to the plain fill — otherwise every call re-climbs
-      the whole ladder (~3 wasted full-batch fills) before falling back.
-    * ``None`` — fell through with all-finite scores (first-call ub
-      guess was just low, or the capped engine is unavailable); callers
-      seed their hint from the result's max.
-    """
-    ub = ub0
-    while True:
-        cap = ins_run_cap(costs, ub, L)
-        if cap == 0:
-            break  # cap no narrower than the row: plain fill
-        try:
-            out = fill_capped(cap)
-        except Exception:
-            break  # capped engine unavailable here: plain fill
-        if (out[0] <= ub).all():
-            return out, max(int(out[0].max()), 1)
-        ub *= 4
-    out = fill_plain()
-    return out, (0 if (np.asarray(out[0]) >= INF).any() else None)
-
-
-# tests flip this to exercise the truncated prefix-min on CPU, where it
-# is otherwise disabled (lax.cummin beats the roll-rounds there —
-# measured ~2x on the drift suite; the truncation is a TPU op-count win)
-FORCE_TRUNC_ON_CPU = False
-
-
-def _run_cap_for_backend(costs, ub: int, width: int) -> int:
-    if jax.default_backend() == "cpu" and not FORCE_TRUNC_ON_CPU:
-        return 0
-    return ins_run_cap(costs, ub, width)
-
-
-def _prefix_min_trunc(t, max_run: int, B: int):
-    """Inclusive prefix-min over a trailing window of ``max_run`` lanes
-    (power of two) via shift+min doubling; mirrors the Pallas kernels'
-    truncated rounds."""
-    k = 1
-    while k < max_run:
-        shifted = jnp.concatenate(
-            [jnp.full((B, k), INF, jnp.int32), t[:, :-k]], axis=1)
-        t = jnp.minimum(t, shifted)
-        k <<= 1
-    return t
-
-
-@functools.lru_cache(maxsize=None)
-def _banded_exec(window: int, Wb: int, P: int, o: int, e: int, x: int,
-                 max_run: int = 0, vary_axes: tuple = ()):
-    """Banded scores kernel: rings hold (B, W, Wb) windows.
-
-    ``max_run``: insertion-run cap from :func:`ins_run_cap` (0 = full
-    band).  ``vary_axes``: mesh axes this runs under via shard_map — the
-    scan carry must be pcast to varying over them.
-    """
-
-    @jax.jit
-    def fn(symbols, pred_slots_ranks, pred_valid, wstarts, write_slots,
-           end_rank, qshift, lengths):
-        # pred_slots_ranks: (Np, P) predecessor RANKS (not ring slots)
-        B, L = qshift.shape
-        Np = symbols.shape[0]
-        lengths_i = lengths.astype(jnp.int32)
-
-        M0 = jnp.full((B, window, Wb), INF, dtype=jnp.int32)
-        D0 = jnp.full((B, window, Wb), INF, dtype=jnp.int32)
-        if vary_axes:
-            M0 = jax.lax.pcast(M0, vary_axes, to="varying")
-            D0 = jax.lax.pcast(D0, vary_axes, to="varying")
-
-        jloc = jnp.arange(Wb, dtype=jnp.int32)
-
-        def step(carry, xs):
-            M_ring, D_ring = carry
-            rank, sym, pred_ranks, valid, w_r, wslot = xs
-            j_global = w_r + jloc  # (Wb,)
-
-            min_pm = jnp.full((B, Wb), INF, dtype=jnp.int32)
-            min_pd = jnp.full((B, Wb), INF, dtype=jnp.int32)
-            for p in range(P):
-                pr = pred_ranks[p]
-                slot = jnp.take(write_slots, pr)
-                w_p = jnp.take(wstarts, pr)
-                delta = w_r - w_p
-                rowM = jax.lax.dynamic_index_in_dim(M_ring, slot, 1, keepdims=False)
-                rowD = jax.lax.dynamic_index_in_dim(D_ring, slot, 1, keepdims=False)
-                padM = jnp.concatenate(
-                    [jnp.full((B, Wb), INF, jnp.int32), rowM,
-                     jnp.full((B, Wb), INF, jnp.int32)], axis=1)
-                padD = jnp.concatenate(
-                    [jnp.full((B, Wb), INF, jnp.int32), rowD,
-                     jnp.full((B, Wb), INF, jnp.int32)], axis=1)
-                start = jnp.clip(delta + Wb, 0, 2 * Wb)
-                am = jax.lax.dynamic_slice_in_dim(padM, start, Wb, axis=1)
-                ad = jax.lax.dynamic_slice_in_dim(padD, start, Wb, axis=1)
-                keep = valid[p]
-                min_pm = jnp.minimum(min_pm, jnp.where(keep, am, INF))
-                min_pd = jnp.minimum(min_pd, jnp.where(keep, ad, INF))
-
-            D = jnp.minimum(jnp.minimum(min_pm + o + e, min_pd + e), INF)
-
-            # diagonal: global j-1 = local shift by one within the aligned rows
-            diag_src = jnp.concatenate(
-                [jnp.full((B, 1), INF, jnp.int32), min_pm[:, :-1]], axis=1)
-            # local column 0's diagonal source is at global w_r-1, which sits
-            # at aligned-local -1: refetch via the same padding trick is
-            # overkill — the band guarantees bound(r, w_r-1) > UB for the
-            # optimal path, so INF is safe there.
-            qwin = jax.lax.dynamic_slice_in_dim(qshift, w_r, Wb, axis=1)
-            match_cost = jnp.where(qwin == sym, jnp.int32(0), jnp.int32(x))
-            diag = jnp.minimum(diag_src + match_cost, INF)
-
-            A = jnp.minimum(diag, D)
-            is_start = rank == 0
-            origin = jnp.logical_and(is_start, j_global[None, :] == 0)
-            A = jnp.minimum(A, jnp.where(origin, jnp.int32(0), INF))
-
-            t = A - e * j_global[None, :]
-            if max_run:
-                pref = _prefix_min_trunc(t, max_run, B)
-            else:
-                pref = jax.lax.cummin(t, axis=1)
-            pref_m1 = jnp.concatenate(
-                [jnp.full((B, 1), INF, jnp.int32), pref[:, :-1]], axis=1)
-            I = jnp.minimum(pref_m1 + o + e * j_global[None, :] + e * 0, INF)
-            M = jnp.minimum(A, I)
-
-            is_end = rank == end_rank
-            M = jnp.where(is_end, min_pm, M)
-            D = jnp.where(is_end, INF, D)
-
-            M_ring = jax.lax.dynamic_update_index_in_dim(M_ring, M, wslot, 1)
-            D_ring = jax.lax.dynamic_update_index_in_dim(D_ring, D, wslot, 1)
-
-            # per-read score capture at offset = length (local coords)
-            idx_loc = lengths_i - w_r
-            in_range = jnp.logical_and(idx_loc >= 0, idx_loc < Wb)
-            idx_c = jnp.clip(idx_loc, 0, Wb - 1)[:, None]
-            at_len = jnp.take_along_axis(M, idx_c, axis=1)[:, 0]
-            at_len = jnp.where(in_range, at_len, INF)
-            at_len = jnp.where(is_end, at_len, INF)
-            return (M_ring, D_ring), at_len
-
-        ranks = jnp.arange(Np, dtype=jnp.int32)
-        xs = (ranks, symbols, pred_slots_ranks, pred_valid, wstarts,
-              write_slots)
-        _, at_len = jax.lax.scan(step, (M0, D0), xs)  # (Np, B)
-        return jnp.min(at_len, axis=0)
-
-    return fn
-
-
-@functools.lru_cache(maxsize=None)
-def _banded_exec_ef(window: int, Wb: int, P: int, o: int, e: int, x: int,
-                    free_start: bool, max_run: int = 0,
-                    vary_axes: tuple = ()):
-    """Ends-free banded scores kernel (XLA body).
-
-    Like :func:`_banded_exec` plus bounded/unbounded free ends: a free
-    graph begin seeds every real rank's j=0 cell, and a global-width
-    ``best`` row accumulates the window of each rank whose graph-end
-    bound passes (``end_ok``); the query-end bound applies as a windowed
-    min over ``[jlo, n]`` at the end.  Bound values ride in as arrays, so
-    one compiled variant serves every bound combination.
-    """
-
-    @jax.jit
-    def fn(symbols, pred_slots_ranks, pred_valid, wstarts, write_slots,
-           end_rank, end_ok, qshift, lengths, jlo):
-        B, L = qshift.shape
-        Np = symbols.shape[0]
-        lengths_i = lengths.astype(jnp.int32)
-
-        M0 = jnp.full((B, window, Wb), INF, dtype=jnp.int32)
-        D0 = jnp.full((B, window, Wb), INF, dtype=jnp.int32)
-        best0 = jnp.full((B, L), INF, dtype=jnp.int32)
-        if vary_axes:
-            M0 = jax.lax.pcast(M0, vary_axes, to="varying")
-            D0 = jax.lax.pcast(D0, vary_axes, to="varying")
-            best0 = jax.lax.pcast(best0, vary_axes, to="varying")
-
-        jloc = jnp.arange(Wb, dtype=jnp.int32)
-
-        def step(carry, xs):
-            M_ring, D_ring, best = carry
-            rank, sym, pred_ranks, valid, w_r, wslot, ok = xs
-            j_global = w_r + jloc  # (Wb,)
-
-            min_pm = jnp.full((B, Wb), INF, dtype=jnp.int32)
-            min_pd = jnp.full((B, Wb), INF, dtype=jnp.int32)
-            for p in range(P):
-                pr = pred_ranks[p]
-                slot = jnp.take(write_slots, pr)
-                w_p = jnp.take(wstarts, pr)
-                delta = w_r - w_p
-                rowM = jax.lax.dynamic_index_in_dim(M_ring, slot, 1,
-                                                    keepdims=False)
-                rowD = jax.lax.dynamic_index_in_dim(D_ring, slot, 1,
-                                                    keepdims=False)
-                padM = jnp.concatenate(
-                    [jnp.full((B, Wb), INF, jnp.int32), rowM,
-                     jnp.full((B, Wb), INF, jnp.int32)], axis=1)
-                padD = jnp.concatenate(
-                    [jnp.full((B, Wb), INF, jnp.int32), rowD,
-                     jnp.full((B, Wb), INF, jnp.int32)], axis=1)
-                start = jnp.clip(delta + Wb, 0, 2 * Wb)
-                am = jax.lax.dynamic_slice_in_dim(padM, start, Wb, axis=1)
-                ad = jax.lax.dynamic_slice_in_dim(padD, start, Wb, axis=1)
-                keep = valid[p]
-                min_pm = jnp.minimum(min_pm, jnp.where(keep, am, INF))
-                min_pd = jnp.minimum(min_pd, jnp.where(keep, ad, INF))
-
-            D = jnp.minimum(jnp.minimum(min_pm + o + e, min_pd + e), INF)
-
-            diag_src = jnp.concatenate(
-                [jnp.full((B, 1), INF, jnp.int32), min_pm[:, :-1]], axis=1)
-            qwin = jax.lax.dynamic_slice_in_dim(qshift, w_r, Wb, axis=1)
-            match_cost = jnp.where(qwin == sym, jnp.int32(0), jnp.int32(x))
-            diag = jnp.minimum(diag_src + match_cost, INF)
-
-            A = jnp.minimum(diag, D)
-            is_end = rank == end_rank
-            is_real = jnp.logical_and(rank > 0,
-                                      jnp.logical_not(is_end))
-            origin_rank = jnp.logical_or(
-                rank == 0, jnp.logical_and(is_real, free_start))
-            origin = jnp.logical_and(origin_rank, j_global[None, :] == 0)
-            A = jnp.minimum(A, jnp.where(origin, jnp.int32(0), INF))
-
-            t = A - e * j_global[None, :]
-            if max_run:
-                pref = _prefix_min_trunc(t, max_run, B)
-            else:
-                pref = jax.lax.cummin(t, axis=1)
-            pref_m1 = jnp.concatenate(
-                [jnp.full((B, 1), INF, jnp.int32), pref[:, :-1]], axis=1)
-            I = jnp.minimum(pref_m1 + o + e * j_global[None, :], INF)
-            M = jnp.minimum(A, I)
-
-            M = jnp.where(is_end, min_pm, M)
-            D = jnp.where(is_end, INF, D)
-
-            M_ring = jax.lax.dynamic_update_index_in_dim(M_ring, M, wslot, 1)
-            D_ring = jax.lax.dynamic_update_index_in_dim(D_ring, D, wslot, 1)
-
-            permitted = ok == 1
-            cur = jax.lax.dynamic_slice_in_dim(best, w_r, Wb, axis=1)
-            upd = jnp.where(permitted, jnp.minimum(cur, M), cur)
-            best = jax.lax.dynamic_update_slice_in_dim(best, upd, w_r,
-                                                       axis=1)
-            return (M_ring, D_ring, best), None
-
-        ranks = jnp.arange(Np, dtype=jnp.int32)
-        xs = (ranks, symbols, pred_slots_ranks, pred_valid, wstarts,
-              write_slots, end_ok)
-        (_, _, best), _ = jax.lax.scan(step, (M0, D0, best0), xs)
-        col = jnp.arange(L, dtype=jnp.int32)[None, :]
-        win = jnp.logical_and(col >= jlo.astype(jnp.int32)[:, None],
-                              col <= lengths_i[:, None])
-        return jnp.min(jnp.where(win, best, INF), axis=1)
-
-    return fn
-
-
 @functools.lru_cache(maxsize=None)
 def _banded_exec_drift_2p(window: int, Wb: int, P: int, o1: int, e1: int,
                           e2: int, x: int, S: int, vary_axes: tuple = ()):
     """Two-piece drifting-window banded scores kernel (XLA body).
 
-    Same frame mechanics as :func:`_banded_exec_drift` with the 5-state
+    Same frame mechanics as the one-piece drift body
+    (``ops.banded_fill.xla_banded_exec`` with ``S > 0``) with the 5-state
     recurrence; the coupled (I1, I2) min-plus scan is offset-independent,
     so the drift needs no sigma term inside the insertion math.
     """
@@ -577,7 +250,7 @@ def _banded_exec_drift_2p(window: int, Wb: int, P: int, o1: int, e1: int,
 
     @jax.jit
     def fn(symbols, pred_slots_ranks, pred_valid, wstarts, write_slots,
-           end_rank, s_ranks, s_prev_ranks, qpad, lengths, n_min_s, mq):
+           end_rank, s_ranks, qpad, lengths, n_min_s, mq):
         B = qpad.shape[0]
         Np = symbols.shape[0]
         lengths_i = lengths.astype(jnp.int32)
@@ -677,271 +350,12 @@ def _banded_exec_drift_2p(window: int, Wb: int, P: int, o1: int, e1: int,
             return (M_ring, D1_ring, D2_ring, qcur), at_len
 
         ranks = jnp.arange(Np, dtype=jnp.int32)
+        s_prev_ranks = jnp.concatenate([jnp.zeros((1,), s_ranks.dtype),
+                                        s_ranks[:-1]])
         xs = (ranks, symbols, pred_slots_ranks, pred_valid, wstarts,
               write_slots, s_ranks, s_prev_ranks)
         _, at_len = jax.lax.scan(step, (ring0, ring0, ring0, qpad), xs)
         return jnp.min(at_len, axis=0)
-
-    return fn
-
-
-@functools.lru_cache(maxsize=None)
-def _banded_exec_drift(window: int, Wb: int, P: int, o: int, e: int, x: int,
-                       S: int, max_run: int = 0, vary_axes: tuple = ()):
-    """Banded scores kernel with per-read drifting windows (XLA body).
-
-    Each read's window is the shared layout shifted right by
-    sigma_b(r) = 128 * floor(nbs_b * s_r / S).  At ranks where the global
-    step count s_r increments, reads whose sigma advances re-frame: their
-    query row and all live ring rows roll left 128 lanes, so predecessor
-    reads stay shared dynamic slices (frame deltas never depend on the
-    read).  See :func:`band_windows_drift` for the layout/soundness.
-    """
-
-    @jax.jit
-    def fn(symbols, pred_slots_ranks, pred_valid, wstarts, write_slots,
-           end_rank, s_ranks, s_prev_ranks, qpad, lengths, n_min_s, mq):
-        # qpad: (B, MQ+L) query, MQ zero lanes on the left (negative-frame
-        # window starts read them as never-matching symbols); mq = MQ;
-        # n_min_s = batch min length (drift units derive from it)
-        B = qpad.shape[0]
-        Np = symbols.shape[0]
-        lengths_i = lengths.astype(jnp.int32)
-        nbs_i = jnp.maximum(lengths_i - n_min_s + 64, 0) // 128
-
-        M0 = jnp.full((B, window, Wb), INF, dtype=jnp.int32)
-        D0 = jnp.full((B, window, Wb), INF, dtype=jnp.int32)
-        if vary_axes:
-            # (qpad arrives sharded over dp and is already varying)
-            M0 = jax.lax.pcast(M0, vary_axes, to="varying")
-            D0 = jax.lax.pcast(D0, vary_axes, to="varying")
-
-        jloc = jnp.arange(Wb, dtype=jnp.int32)
-
-        def step(carry, xs):
-            M_ring, D_ring, qcur = carry
-            rank, sym, pred_ranks, valid, w_r, wslot, s_r, s_p = xs
-            sig_now = 128 * ((nbs_i * s_r) // S)  # (B,)
-            sig_prev = 128 * ((nbs_i * s_p) // S)
-            stepped = sig_now > sig_prev
-
-            # re-frame stepping reads: roll query + live rows left 128
-            def roll128(t):
-                return jnp.concatenate(
-                    [t[..., 128:],
-                     jnp.full(t.shape[:-1] + (128,), INF, jnp.int32)],
-                    axis=-1)
-
-            qroll = jnp.concatenate(
-                [qcur[:, 128:], jnp.zeros((B, 128), qcur.dtype)], axis=1)
-            qcur = jnp.where(stepped[:, None], qroll, qcur)
-            M_ring = jnp.where(stepped[:, None, None], roll128(M_ring), M_ring)
-            D_ring = jnp.where(stepped[:, None, None], roll128(D_ring), D_ring)
-
-            min_pm = jnp.full((B, Wb), INF, dtype=jnp.int32)
-            min_pd = jnp.full((B, Wb), INF, dtype=jnp.int32)
-            for p in range(P):
-                pr = pred_ranks[p]
-                slot = jnp.take(write_slots, pr)
-                w_p = jnp.take(wstarts, pr)
-                delta = w_r - w_p
-                rowM = jax.lax.dynamic_index_in_dim(M_ring, slot, 1,
-                                                    keepdims=False)
-                rowD = jax.lax.dynamic_index_in_dim(D_ring, slot, 1,
-                                                    keepdims=False)
-                padM = jnp.concatenate(
-                    [jnp.full((B, Wb), INF, jnp.int32), rowM,
-                     jnp.full((B, Wb), INF, jnp.int32)], axis=1)
-                padD = jnp.concatenate(
-                    [jnp.full((B, Wb), INF, jnp.int32), rowD,
-                     jnp.full((B, Wb), INF, jnp.int32)], axis=1)
-                start = jnp.clip(delta + Wb, 0, 2 * Wb)
-                am = jax.lax.dynamic_slice_in_dim(padM, start, Wb, axis=1)
-                ad = jax.lax.dynamic_slice_in_dim(padD, start, Wb, axis=1)
-                keep = valid[p]
-                min_pm = jnp.minimum(min_pm, jnp.where(keep, am, INF))
-                min_pd = jnp.minimum(min_pd, jnp.where(keep, ad, INF))
-
-            D = jnp.minimum(jnp.minimum(min_pm + o + e, min_pd + e), INF)
-
-            diag_src = jnp.concatenate(
-                [jnp.full((B, 1), INF, jnp.int32), min_pm[:, :-1]], axis=1)
-            qwin = jax.lax.dynamic_slice_in_dim(qcur, w_r + mq, Wb, axis=1)
-            match_cost = jnp.where(qwin == sym, jnp.int32(0), jnp.int32(x))
-            diag = jnp.minimum(diag_src + match_cost, INF)
-
-            A = jnp.minimum(diag, D)
-            j32 = w_r + jloc[None, :] + sig_now[:, None]  # (B, Wb) global j
-            is_start = rank == 0
-            origin = jnp.logical_and(is_start, j32 == 0)
-            A = jnp.minimum(A, jnp.where(origin, jnp.int32(0), INF))
-
-            t = A - e * j32
-            if max_run:
-                pref = _prefix_min_trunc(t, max_run, B)
-            else:
-                pref = jax.lax.cummin(t, axis=1)
-            pref_m1 = jnp.concatenate(
-                [jnp.full((B, 1), INF, jnp.int32), pref[:, :-1]], axis=1)
-            I = jnp.minimum(pref_m1 + o + e * j32, INF)
-            M = jnp.minimum(A, I)
-
-            is_end = rank == end_rank
-            M = jnp.where(is_end, min_pm, M)
-            D = jnp.where(is_end, INF, D)
-
-            M_ring = jax.lax.dynamic_update_index_in_dim(M_ring, M, wslot, 1)
-            D_ring = jax.lax.dynamic_update_index_in_dim(D_ring, D, wslot, 1)
-
-            idx_loc = lengths_i - w_r - sig_now
-            in_range = jnp.logical_and(idx_loc >= 0, idx_loc < Wb)
-            idx_c = jnp.clip(idx_loc, 0, Wb - 1)[:, None]
-            at_len = jnp.take_along_axis(M, idx_c, axis=1)[:, 0]
-            at_len = jnp.where(in_range, at_len, INF)
-            at_len = jnp.where(is_end, at_len, INF)
-            return (M_ring, D_ring, qcur), at_len
-
-        ranks = jnp.arange(Np, dtype=jnp.int32)
-        xs = (ranks, symbols, pred_slots_ranks, pred_valid, wstarts,
-              write_slots, s_ranks, s_prev_ranks)
-        _, at_len = jax.lax.scan(step, (M0, D0, qpad), xs)
-        return jnp.min(at_len, axis=0)
-
-    return fn
-
-
-@functools.lru_cache(maxsize=None)
-def _banded_exec_drift_ef(window: int, Wb: int, P: int, o: int, e: int,
-                          x: int, S: int, max_run: int = 0,
-                          vary_axes: tuple = ()):
-    """Drifting-window banded scores kernel for *bounded* ends-free spans
-    (XLA body).
-
-    Frame mechanics of :func:`_banded_exec_drift` plus the bounded-span
-    end rules of :func:`_banded_exec_ef`: at every rank whose graph-end
-    bound passes (``end_ok``), the permitted query-end window
-    ``[jlo_b, n_b]`` of the Match row can finish the alignment — tracked
-    as a per-read running min over the drift frame's global offsets
-    ``j = w_r + jloc + sigma_b(r)`` (no (B, L) best row needed).  Free
-    graph *begin* is not supported: those corridors are corner-anchored
-    and drift cannot help them (scripts/drift_endsfree_probe.py); callers
-    route them through the shared-window ends-free kernels.
-
-    Reference semantics: ``gap_affine.rs:150-248`` (bound end tests).
-    """
-
-    @jax.jit
-    def fn(symbols, pred_slots_ranks, pred_valid, wstarts, write_slots,
-           end_rank, end_ok, s_ranks, s_prev_ranks, qpad, lengths, jlo,
-           n_min_s, mq):
-        B = qpad.shape[0]
-        Np = symbols.shape[0]
-        lengths_i = lengths.astype(jnp.int32)
-        jlo_i = jlo.astype(jnp.int32)
-        nbs_i = jnp.maximum(lengths_i - n_min_s + 64, 0) // 128
-
-        M0 = jnp.full((B, window, Wb), INF, dtype=jnp.int32)
-        D0 = jnp.full((B, window, Wb), INF, dtype=jnp.int32)
-        best0 = jnp.full((B,), INF, dtype=jnp.int32)
-        if vary_axes:
-            M0 = jax.lax.pcast(M0, vary_axes, to="varying")
-            D0 = jax.lax.pcast(D0, vary_axes, to="varying")
-            best0 = jax.lax.pcast(best0, vary_axes, to="varying")
-
-        jloc = jnp.arange(Wb, dtype=jnp.int32)
-
-        def step(carry, xs):
-            M_ring, D_ring, qcur, best = carry
-            rank, sym, pred_ranks, valid, w_r, wslot, s_r, s_p, ok = xs
-            sig_now = 128 * ((nbs_i * s_r) // S)  # (B,)
-            sig_prev = 128 * ((nbs_i * s_p) // S)
-            stepped = sig_now > sig_prev
-
-            def roll128(t):
-                return jnp.concatenate(
-                    [t[..., 128:],
-                     jnp.full(t.shape[:-1] + (128,), INF, jnp.int32)],
-                    axis=-1)
-
-            qroll = jnp.concatenate(
-                [qcur[:, 128:], jnp.zeros((B, 128), qcur.dtype)], axis=1)
-            qcur = jnp.where(stepped[:, None], qroll, qcur)
-            M_ring = jnp.where(stepped[:, None, None], roll128(M_ring),
-                               M_ring)
-            D_ring = jnp.where(stepped[:, None, None], roll128(D_ring),
-                               D_ring)
-
-            min_pm = jnp.full((B, Wb), INF, dtype=jnp.int32)
-            min_pd = jnp.full((B, Wb), INF, dtype=jnp.int32)
-            for p in range(P):
-                pr = pred_ranks[p]
-                slot = jnp.take(write_slots, pr)
-                w_p = jnp.take(wstarts, pr)
-                delta = w_r - w_p
-                rowM = jax.lax.dynamic_index_in_dim(M_ring, slot, 1,
-                                                    keepdims=False)
-                rowD = jax.lax.dynamic_index_in_dim(D_ring, slot, 1,
-                                                    keepdims=False)
-                padM = jnp.concatenate(
-                    [jnp.full((B, Wb), INF, jnp.int32), rowM,
-                     jnp.full((B, Wb), INF, jnp.int32)], axis=1)
-                padD = jnp.concatenate(
-                    [jnp.full((B, Wb), INF, jnp.int32), rowD,
-                     jnp.full((B, Wb), INF, jnp.int32)], axis=1)
-                start = jnp.clip(delta + Wb, 0, 2 * Wb)
-                am = jax.lax.dynamic_slice_in_dim(padM, start, Wb, axis=1)
-                ad = jax.lax.dynamic_slice_in_dim(padD, start, Wb, axis=1)
-                keep = valid[p]
-                min_pm = jnp.minimum(min_pm, jnp.where(keep, am, INF))
-                min_pd = jnp.minimum(min_pd, jnp.where(keep, ad, INF))
-
-            D = jnp.minimum(jnp.minimum(min_pm + o + e, min_pd + e), INF)
-
-            diag_src = jnp.concatenate(
-                [jnp.full((B, 1), INF, jnp.int32), min_pm[:, :-1]], axis=1)
-            qwin = jax.lax.dynamic_slice_in_dim(qcur, w_r + mq, Wb, axis=1)
-            match_cost = jnp.where(qwin == sym, jnp.int32(0), jnp.int32(x))
-            diag = jnp.minimum(diag_src + match_cost, INF)
-
-            A = jnp.minimum(diag, D)
-            j32 = w_r + jloc[None, :] + sig_now[:, None]  # (B, Wb) global j
-            # bounded graph begin degenerates to the start node (reference
-            # initial_states, gap_affine.rs:150-168): global origin only
-            is_start = rank == 0
-            origin = jnp.logical_and(is_start, j32 == 0)
-            A = jnp.minimum(A, jnp.where(origin, jnp.int32(0), INF))
-
-            t = A - e * j32
-            if max_run:
-                pref = _prefix_min_trunc(t, max_run, B)
-            else:
-                pref = jax.lax.cummin(t, axis=1)
-            pref_m1 = jnp.concatenate(
-                [jnp.full((B, 1), INF, jnp.int32), pref[:, :-1]], axis=1)
-            I = jnp.minimum(pref_m1 + o + e * j32, INF)
-            M = jnp.minimum(A, I)
-
-            is_end = rank == end_rank
-            M = jnp.where(is_end, min_pm, M)
-            D = jnp.where(is_end, INF, D)
-
-            M_ring = jax.lax.dynamic_update_index_in_dim(M_ring, M, wslot, 1)
-            D_ring = jax.lax.dynamic_update_index_in_dim(D_ring, D, wslot, 1)
-
-            # bounded-span end test: rank permitted (end_ok) and offset in
-            # the query-end window [jlo, n] may finish the alignment
-            win = jnp.logical_and(j32 >= jlo_i[:, None],
-                                  j32 <= lengths_i[:, None])
-            allowed = jnp.logical_and(win, ok == 1)
-            best = jnp.minimum(best,
-                               jnp.min(jnp.where(allowed, M, INF), axis=1))
-            return (M_ring, D_ring, qcur, best), None
-
-        ranks = jnp.arange(Np, dtype=jnp.int32)
-        xs = (ranks, symbols, pred_slots_ranks, pred_valid, wstarts,
-              write_slots, s_ranks, s_prev_ranks, end_ok)
-        (_, _, _, best), _ = jax.lax.scan(step, (M0, D0, qpad, best0), xs)
-        return best
 
     return fn
 
@@ -1053,13 +467,12 @@ class BandedScorer:
         """``mesh``: optional jax.sharding.Mesh with a ``dp`` axis — the
         read batch shards over it (graph/window arrays replicate; the
         banded fill has no cross-read dependence, so dp needs no
-        collectives and can span hosts over DCN).  ``dg``: an existing
-        DeviceGraph for the same flat graph, to skip the rebuild/upload.
-        ``aln_type``: None/Global for global alignment; an ``EndsFree``
-        span routes through the ends-free banded kernels (bounded or
-        unbounded free ends; reference ``gap_affine.rs:150-248``).
-        Ends-free currently disables the mesh/drift fast paths (the
-        fills fall back to single-device kernels).
+        collectives).  ``dg``: an existing DeviceGraph for the same flat
+        graph, to skip the rebuild/upload.  ``aln_type``: None/Global for
+        global alignment; an ``EndsFree`` span routes through the
+        ends-free banded fills (bounded or unbounded free ends; reference
+        ``gap_affine.rs:150-248``).  Ends-free does not shard over a
+        mesh.
         """
         from .costs import EndsFree
 
@@ -1074,14 +487,15 @@ class BandedScorer:
                 "use mesh=None (or dp_fill_scores_ends_free for full "
                 "fills)"
             )
+        self.executor = backend.fill_executor()
         self.dg = dg if dg is not None \
             else DeviceGraph.build(flat, node_bucket=node_bucket)
-        # predecessor RANK table (banded kernel re-derives ring slots);
-        # DeviceGraph.build already assembled it vectorized
+        # predecessor RANK table for the two-piece bodies (they re-derive
+        # ring slots and window starts from it)
         self._pred_ranks = jnp.asarray(self.dg.pred_ranks_np)
-        # banded-window device arrays, keyed by (n_min, n_max, ub):
-        # re-uploading them per call would put a host->device round trip
-        # on the dispatch path (dominant on tethered chips)
+        # window layouts and their device tables, keyed by
+        # (kind, n_min, n_max, ub, mesh, L): re-uploading them per call
+        # would put a host->device copy on the dispatch path
         self._prep_cache: dict = {}
         # last ub that verified, per (n_min, n_max): starting each call at
         # the default guess would re-pay every failed attempt of the
@@ -1090,22 +504,24 @@ class BandedScorer:
         # (id -> (array ref, (n_min, n_max))): see scores() for why the
         # array reference is pinned
         self._lenstats: dict = {}
-        # ((id, padded_L) -> (array ref, padded array)): same pinning rule
+        # ((id, mq, padded_L) -> (array ref, padded array)): same pinning
         self._qpad: dict = {}
         # observability counters (the wavefront analogue of the exact
         # engines' num_queued/visited/pruned; SURVEY §5): cumulative
-        # across calls, reset with reset_stats()
+        # across calls, reset with reset_stats().  xla_fills: banded
+        # fills a GPU served with the XLA body (two-piece costs, layouts
+        # past the CUDA kernel's shared-memory budget).
         self.stats = {"fills": 0, "cells_filled": 0, "tiers": 0,
-                      "fullfill_fallbacks": 0}
+                      "fullfill_fallbacks": 0, "xla_fills": 0}
         # dp-sharded full-fill score fn, built lazily on first mesh-mode
         # fallback to the full fill
         self._mesh_fullfill_fn = None
         # (id -> (lengths ref, jlo)) per-batch ends-free query windows
         self._ef_jlo: dict = {}
 
-    # modeled fixed cost per device fill (dispatch + gathers), in cells:
-    # ~25-30 ms of tethered dispatch at ~35 Gcells/s.  Biases the tier
-    # choice toward fewer fills unless the band savings are substantial.
+    # modeled fixed cost per device fill (dispatch + gathers), in cells.
+    # Biases the tier choice toward fewer fills unless the band savings
+    # are substantial.  Not yet re-measured on the GPU.
     TIER_OVERHEAD_CELLS = 1_000_000_000
 
     def reset_stats(self) -> None:
@@ -1139,6 +555,121 @@ class BandedScorer:
             jlo = ent[1]
         return fs, end_ok, jlo
 
+    def _executor(self, width: int, two_piece: bool) -> str:
+        """Executor of one banded fill, chosen from the shapes alone: the
+        CUDA kernel where it serves, else the XLA body (counted in
+        ``stats["xla_fills"]`` on a GPU)."""
+        if self.executor != "cuda":
+            return "xla"
+        if not two_piece and cuda_fits(self.dg.window, width):
+            return "cuda"
+        self.stats["xla_fills"] += 1
+        return "xla"
+
+    def _clamps(self, L: int, two_piece: bool) -> bool:
+        """Whether a band as wide as the row runs clamped to full width
+        (exact, every offset in-window) instead of the full fill: only
+        where the CUDA kernel serves it; elsewhere the full fill is
+        cheaper."""
+        return (self.executor == "cuda" and not two_piece
+                and cuda_fits(self.dg.window, cuda_width(L)))
+
+    @staticmethod
+    def _pad_rows(n: int) -> int:
+        """Rows a retry tail of ``n`` reads is padded to: the next power of
+        two, so tails of varying sizes reuse a bounded set of compiled
+        fills."""
+        if n <= 0:
+            return n
+        v = 1
+        while v < n:
+            v <<= 1
+        return v
+
+    def _padded_query(self, q_in_key, qshift, mq: int, req: int):
+        """``qshift`` with ``mq`` zero lanes on the left and zero lanes on
+        the right up to ``req`` columns, cached by the source array's
+        identity (entries pin it, so a recycled id() can never surface
+        another batch's padding)."""
+        L = int(qshift.shape[1])
+        if not mq and req <= L:
+            return qshift
+        key = (id(q_in_key), mq, req) if q_in_key is not None else None
+        entry = self._qpad.get(key) if key else None
+        if entry is not None and entry[0] is q_in_key:
+            return entry[1]
+        B = int(qshift.shape[0])
+        parts = [qshift]
+        if mq:
+            parts.insert(0, jnp.zeros((B, mq), qshift.dtype))
+        if req > L:
+            parts.append(jnp.zeros((B, req - L), qshift.dtype))
+        q_in = jnp.concatenate(parts, axis=1)
+        if key:
+            self._qpad[key] = (q_in_key, q_in)
+            while len(self._qpad) > 8:
+                self._qpad.pop(next(iter(self._qpad)))
+        return q_in
+
+    def _tables(self, key, wstart, width, s_ranks=None, S=0):
+        tkey = key + ("tables",)
+        tables = self._prep_cache.get(tkey)
+        if tables is None:
+            tables = prepare_banded(self.dg, wstart, width, s_ranks, S)
+            self._prep_cache[tkey] = tables
+        return tables
+
+    def _sharded(self, fn, key, in_specs):
+        """shard_map a banded body over the mesh's dp axis.
+
+        Graph and window tables replicate; each shard fills its own reads
+        independently (lasagna's data parallelism, ``lasagna.rs:214-273``,
+        as a mesh axis) — no collectives run inside the fill.
+        """
+        skey = key + ("sharded",)
+        sfn = self._prep_cache.get(skey)
+        if sfn is None:
+            sfn = jax.jit(jax.shard_map(fn, mesh=self.mesh,
+                                        in_specs=in_specs,
+                                        out_specs=PS("dp")))
+            self._prep_cache[skey] = sfn
+        return sfn
+
+    def _one_piece_fill(self, key, tables, q_in, lengths, use_mesh, n_min=0,
+                        mq=0):
+        costs = self.costs
+        ex = self._executor(tables.width, False)
+        if not use_mesh:
+            ends = self._ef_params(lengths) if self.ends_free else None
+            return np.asarray(banded_scores(
+                ex, self.dg, tables, q_in, lengths, costs, ends=ends,
+                n_min=n_min, mq=mq))
+        # each shard fills its own reads with the executor chosen above
+        # (global spans only: ends-free scorers take no mesh)
+        s_ranks = tables.s_ranks if tables.S else tables.wstarts
+        head = (self.dg.symbols, self.dg.pred_slots, tables.pred_valid,
+                tables.pred_wstarts, tables.wstarts, self.dg.write_slots)
+        if ex == "cuda":
+            fn = cuda_banded_exec(self.dg.n_nodes, self.dg.window,
+                                  tables.width, costs.gap_open,
+                                  costs.gap_extend, costs.mismatch,
+                                  tables.S, int(mq), int(n_min), False,
+                                  False)
+            sfn = self._sharded(fn, key, (PS(),) * 8 + (
+                PS("dp", None), PS("dp"), PS("dp")))
+            return np.asarray(sfn(*head, tables.wstarts, s_ranks, q_in,
+                                  lengths, lengths))
+        fn = xla_banded_exec(self.dg.window, tables.width,
+                             int(self.dg.pred_slots.shape[1]),
+                             costs.gap_open, costs.gap_extend,
+                             costs.mismatch, tables.S, vary_axes=("dp",))
+        sfn = self._sharded(fn, key, (PS(),) * 9 + (
+            PS("dp", None), PS("dp"), PS("dp"), PS(), PS()))
+        return np.asarray(sfn(
+            *head, self.dg.end_rank, tables.wstarts, s_ranks, q_in, lengths,
+            lengths, jnp.asarray(n_min, jnp.int32),
+            jnp.asarray(mq, jnp.int32)))
+
     def _full_scores(self, qshift, lengths) -> np.ndarray:
         """Full (unbanded) fill scores; dp-sharded over the mesh when the
         batch divides — the full-fill fallback is the common path for
@@ -1147,52 +678,9 @@ class BandedScorer:
         if self.ends_free:
             from .wavefront import dp_fill_scores_ends_free
 
-            costs = self.costs
-            L = int(qshift.shape[1])
-
-            def fill_plain():
-                return (np.asarray(dp_fill_scores_ends_free(
-                    self.dg, self.flat, qshift, lengths, costs,
-                    self.aln_type)),)
-
-            if jax.default_backend() == "cpu":
-                return fill_plain()[0]
-
-            # insertion-run-capped ladder on the accelerator: the
-            # bounded fill's L-wide prefix scan truncates to the <=ub
-            # run bound (see run_capped_ladder / ins_run_cap)
-            def fill_capped(cap):
-                return (np.asarray(dp_fill_scores_ends_free(
-                    self.dg, self.flat, qshift, lengths, costs,
-                    self.aln_type, engine="pallas", max_run=cap)),)
-
-            entry = self._lenstats.get(id(lengths))
-            key = ("ef_full_ub",) + (entry[1] if entry is not None
-                                     and entry[0] is lengths else (L,))
-            hint = self._ub_hint.get(key)
-            if hint is not None and hint <= 0:
-                # INF (unalignable) rows seen recently at this shape: no
-                # ub can verify them, so skip the ladder — but re-probe
-                # after the countdown (one outlier batch must not
-                # disable capping for the process lifetime)
-                if hint < 0:
-                    self._ub_hint[key] = hint + 1
-                else:
-                    self._ub_hint.pop(key)
-                return fill_plain()[0]
-            ub = hint or ((costs.gap_open + costs.gap_extend) * 4
-                          + costs.mismatch * max(L // 16, 4))
-            out, vmax = run_capped_ladder(costs, L, ub, fill_capped,
-                                          fill_plain)
-            if vmax == 0:
-                self._ub_hint[key] = -LADDER_INF_SKIP  # INF: back off
-            elif vmax is None:
-                finite = out[0][out[0] < INF]
-                if finite.size:
-                    self._ub_hint[key] = max(int(finite.max()), 1)
-            else:
-                self._ub_hint[key] = vmax
-            return out[0]
+            return np.asarray(dp_fill_scores_ends_free(
+                self.dg, self.flat, qshift, lengths, self.costs,
+                self.aln_type))
         if (self.mesh is not None
                 and int(qshift.shape[0]) % self.mesh.shape.get("dp", 1) == 0
                 and not getattr(self.costs, "is_two_piece", False)):
@@ -1210,409 +698,128 @@ class BandedScorer:
 
     def _fill_once_drift(self, q_in_key, qshift, lengths, ub, n_min, n_max,
                          use_mesh):
-        """One banded fill with per-read drifting windows (XLA body).
+        """One banded fill with per-read drifting windows.
 
         Returns banded scores, or None when drift doesn't apply (spread
         too small, band as wide as the full fill, or width not better
         than the shared layout would be).
         """
         costs = self.costs
+        two_piece = getattr(costs, "is_two_piece", False)
         S = drift_steps_for(n_min, n_max)
-        # the kernels roll frames exactly 128 lanes per stepped rank, so
+        # the bodies roll frames exactly 128 lanes per stepped rank, so
         # the schedule must increment at most once per rank: S <= N-1
         # (graphs shorter than the length spread fall back to shared
         # windows)
         if S == 0 or S > self.flat.n_nodes - 1:
             return None
-        if self.ends_free:
-            if getattr(costs, "is_two_piece", False):
-                return None  # no 2p drift-ef kernel; caller full-fills
-            if _free_allowances(self.aln_type)[0]:
-                # free graph begin makes the corridors corner-anchored —
-                # drift's shifted-diagonal mechanism cannot narrow them
-                # (measured: scripts/drift_endsfree_probe.py)
-                return None
-        use_pallas = (
-            not use_mesh
-            and jax.default_backend() != "cpu"
-            and int(qshift.shape[0]) % 64 == 0
-            and not self._prep_cache.get(("nodriftpallas", n_min, n_max))
-        )
-        key = ("drift", n_min, n_max, ub, use_mesh, use_pallas,
-               int(qshift.shape[1]))
+        if self.ends_free and (two_piece
+                               or _free_allowances(self.aln_type)[0]):
+            # no two-piece drift-ef body; a free graph begin makes the
+            # corridors corner-anchored, which drift cannot narrow
+            # (measured: scripts/drift_endsfree_probe.py)
+            return None
+        L = int(qshift.shape[1])
+        key = ("drift", n_min, n_max, ub, use_mesh, L)
         cached = self._prep_cache.get(key)
         if cached is None:
             wstart, width, s_ranks = band_windows_drift(
                 self.flat, n_min, n_max, costs, ub, S,
                 aln_type=self.aln_type)
-            # the shared layout runs the same kernels at the same per-cell
+            # the shared layout runs the same bodies at the same per-cell
             # speed; drift only pays when it is genuinely narrower
             shared_width = band_windows(self.flat, n_min, n_max, costs,
-                                        ub, aln_type=self.aln_type)[1] + 128
-            if width + 128 >= shared_width:
-                width = None
-            mq = int(_round_up(max(0, -int(wstart.min())), 128)) \
-                if width is not None else 0
-            pad = np.zeros(self.dg.n_nodes_padded - wstart.shape[0],
-                           dtype=np.int32)
-            s_pad = np.zeros_like(pad)
-            s_prev = np.concatenate([[0], s_ranks[:-1]]).astype(np.int32)
-            cached = (
-                jnp.asarray(np.concatenate([wstart, pad])),
-                width,
-                jnp.asarray(np.concatenate([s_ranks, s_pad])),
-                jnp.asarray(np.concatenate([s_prev, s_pad])),
-                mq,
-                int(wstart.max()),
-                (wstart, s_ranks),
-            )
+                                        ub, aln_type=self.aln_type)[1]
+            if self.executor == "cuda":
+                width = cuda_width(width)
+            if width >= shared_width or width >= L:
+                cached = (None,)
+            else:
+                mq = int(_round_up(max(0, -int(wstart.min())), 128))
+                cached = (width, mq, wstart, s_ranks)
             self._prep_cache[key] = cached
-        wstarts, width, s_ranks_d, s_prev_d, mq, w_max, host_arrays = cached
-        L = int(qshift.shape[1])
-        if width is None or width >= L:
+        if cached[0] is None:
             return None
+        width, mq, wstart, s_ranks = cached
         self._last_fill_width = width
-
-        req = _round_up(w_max + width, 128)
-        qpad_key = (id(q_in_key), ("drift", mq, req)) \
-            if q_in_key is not None else None
-        entry = self._qpad.get(qpad_key) if qpad_key else None
-        q_in = entry[1] if entry is not None and entry[0] is q_in_key else None
-        if q_in is None:
-            parts = [qshift]
-            if mq:
-                parts.insert(0, jnp.zeros((qshift.shape[0], mq),
-                                          qshift.dtype))
-            if req > L:
-                parts.append(jnp.zeros((qshift.shape[0], req - L),
-                                       qshift.dtype))
-            q_in = parts[0] if len(parts) == 1 else jnp.concatenate(parts,
-                                                                    axis=1)
-            if qpad_key:
-                self._qpad[qpad_key] = (q_in_key, q_in)
-                while len(self._qpad) > 8:
-                    self._qpad.pop(next(iter(self._qpad)))
-
-        two_piece = getattr(costs, "is_two_piece", False)
-        if self.ends_free:
-            # bounded ends-free spans are diagonal-anchored like global
-            # corridors, so drift applies unchanged; only the end rules
-            # differ
-            fs, end_ok, jlo = self._ef_params(lengths)
-            if use_pallas:
-                from ..ops.pallas_fill import (
-                    pallas_banded_scores_drift_ef,
-                    prepare_banded_drift,
-                )
-
-                pkey = key + ("prep",)
-                prep = self._prep_cache.get(pkey)
-                if prep is None:
-                    prep = prepare_banded_drift(
-                        self.dg, costs, host_arrays[0], width,
-                        host_arrays[1], S, int(q_in.shape[1]) - mq)
-                    self._prep_cache[pkey] = prep
-                try:
-                    return np.asarray(pallas_banded_scores_drift_ef(
-                        self.dg, q_in, lengths, costs, prep, n_min,
-                        end_ok, jlo,
-                        max_run=ins_run_cap(costs, ub, width)))
-                except Exception:
-                    self._prep_cache[("nodriftpallas", n_min, n_max)] = True
-                    self._prep_cache.pop(key, None)
-                    return None  # decline: see the accelerator rule below
-            if jax.default_backend() != "cpu":
-                # without the Pallas drift-ef kernel, the XLA drift body
-                # would lose to the shared-window Pallas ends-free
-                # kernel's ~15x per-cell advantage on an accelerator —
-                # decline so the shared kernels serve the batch
-                return None
-            fn = _banded_exec_drift_ef(self.dg.window, width,
-                                       int(self._pred_ranks.shape[1]),
-                                       costs.gap_open, costs.gap_extend,
-                                       costs.mismatch, S,
-                                       max_run=_run_cap_for_backend(costs, ub,
-                                                           width))
-            return np.asarray(
-                fn(self.dg.symbols, self._pred_ranks, self.dg.pred_valid,
-                   wstarts, self.dg.write_slots, self.dg.end_rank, end_ok,
-                   s_ranks_d, s_prev_d, q_in, lengths, jlo,
-                   jnp.asarray(n_min, dtype=jnp.int32),
-                   jnp.asarray(mq, dtype=jnp.int32))
-            )
-        if use_pallas:
-            from ..ops.pallas_fill import (
-                pallas_banded_scores_drift,
-                pallas_banded_scores_drift_2p,
-                prepare_banded_drift,
-            )
-
-            pkey = key + ("prep",)
-            prep = self._prep_cache.get(pkey)
-            if prep is None:
-                prep = prepare_banded_drift(self.dg, costs, host_arrays[0],
-                                            width, host_arrays[1], S,
-                                            int(q_in.shape[1]) - mq)
-                self._prep_cache[pkey] = prep
-            try:
-                if two_piece:
-                    return np.asarray(
-                        pallas_banded_scores_drift_2p(
-                            self.dg, q_in, lengths, costs, prep, n_min,
-                            max_run=ins_run_cap(costs, ub, width))
-                    )
-                return np.asarray(
-                    pallas_banded_scores_drift(self.dg, q_in, lengths,
-                                               costs, prep, n_min,
-                                               max_run=ins_run_cap(
-                                                   costs, ub, width))
-                )
-            except Exception:
-                # compile failure (VMEM at wide bands, or a Mosaic gap on
-                # this toolchain): permanent per length profile
-                self._prep_cache[("nodriftpallas", n_min, n_max)] = True
-                self._prep_cache.pop(key, None)
-                return self._fill_once_drift(q_in_key, qshift, lengths, ub,
-                                             n_min, n_max, use_mesh)
-
-        if two_piece:
-            fn = _banded_exec_drift_2p(self.dg.window, width,
-                                       int(self._pred_ranks.shape[1]),
-                                       costs.gap_open, costs.gap_extend,
-                                       costs.gap_extend2, costs.mismatch,
-                                       S,
-                                       vary_axes=("dp",) if use_mesh
-                                       else ())
-        else:
-            fn = _banded_exec_drift(self.dg.window, width,
-                                    int(self._pred_ranks.shape[1]),
-                                    costs.gap_open, costs.gap_extend,
-                                    costs.mismatch, S,
-                                    max_run=_run_cap_for_backend(costs, ub, width),
-                                    vary_axes=("dp",) if use_mesh else ())
+        req = _round_up(int(wstart.max()) + width, 128)
+        q_in = self._padded_query(q_in_key, qshift, mq, max(req, L))
+        tables = self._tables(key, wstart, width, s_ranks, S)
+        if not two_piece:
+            return self._one_piece_fill(key, tables, q_in, lengths,
+                                        use_mesh, n_min=n_min, mq=mq)
+        self._executor(width, True)
+        fn = _banded_exec_drift_2p(self.dg.window, width,
+                                   int(self._pred_ranks.shape[1]),
+                                   costs.gap_open, costs.gap_extend,
+                                   costs.gap_extend2, costs.mismatch, S,
+                                   vary_axes=("dp",) if use_mesh else ())
         if use_mesh:
-            skey = key + ("sharded",)
-            sfn = self._prep_cache.get(skey)
-            if sfn is None:
-                from jax.sharding import PartitionSpec as PS
-
-                sfn = jax.jit(jax.shard_map(
-                    fn, mesh=self.mesh,
-                    in_specs=(PS(),) * 8 + (PS("dp", None), PS("dp"),
-                                            PS(), PS()),
-                    out_specs=PS("dp"),
-                ))
-                self._prep_cache[skey] = sfn
-            fn = sfn
+            fn = self._sharded(fn, key, (PS(),) * 7 + (
+                PS("dp", None), PS("dp"), PS(), PS()))
         return np.asarray(
             fn(self.dg.symbols, self._pred_ranks, self.dg.pred_valid,
-               wstarts, self.dg.write_slots, self.dg.end_rank,
-               s_ranks_d, s_prev_d, q_in, lengths,
+               tables.wstarts, self.dg.write_slots, self.dg.end_rank,
+               tables.s_ranks, q_in, lengths,
                jnp.asarray(n_min, dtype=jnp.int32),
-               jnp.asarray(mq, dtype=jnp.int32))
-        )
+               jnp.asarray(mq, dtype=jnp.int32)))
 
     def _fill_once(self, q_in_key, qshift, lengths, ub, n_min, n_max,
-                   use_pallas, use_mesh, two_piece):
+                   use_mesh, two_piece):
         """One banded fill of the given batch at the given ub.
 
         Returns the (possibly over-estimated) banded scores as a numpy
-        array, or None when the band would be as wide as the full fill.
-        ``q_in_key``: the original batch array (pins the padding-cache
-        entry), or None to skip caching (sub-batches).
+        array, or None when the band would be as wide as the full fill
+        and is not clamped (see :meth:`_clamps`).  ``q_in_key``: the
+        original batch array (pins the padding-cache entry), or None to
+        skip caching (sub-batches).
         """
         costs = self.costs
-        # on an accelerator, the mesh path runs the pallas kernel inside
-        # shard_map (per-shard fill, no collectives); its windows need the
-        # same 128-alignment as the single-device pallas path
-        pallas_mesh = use_mesh and jax.default_backend() != "cpu"
-        while True:
-            key = (n_min, n_max, ub, use_pallas, use_mesh,
-                   int(qshift.shape[1]))
-            cached = self._prep_cache.get(key)
-            L = int(qshift.shape[1])
-            if cached is None:
-                wstart, width, lo, hi = band_windows(
-                    self.flat, n_min, n_max, costs, ub,
-                    aln_type=self.aln_type
-                )
-                if use_pallas or pallas_mesh:
-                    # 128-align windows so in-kernel dynamic slices stay legal
-                    wstart = (wstart // 128) * 128
-                    width += 128
-                if width >= L:
-                    if not (use_pallas or pallas_mesh):
-                        # the XLA banded body at full width is ~15x
-                        # slower than _full_scores' capped bounded
-                        # fill — only the Pallas kernels make the
-                        # full-width band pay
-                        return None
-                    # "band as wide as the full fill" — degenerate but
+        L = int(qshift.shape[1])
+        key = ("band", n_min, n_max, ub, use_mesh, L)
+        cached = self._prep_cache.get(key)
+        if cached is None:
+            wstart, width, _, _ = band_windows(self.flat, n_min, n_max,
+                                               costs, ub,
+                                               aln_type=self.aln_type)
+            if self.executor == "cuda":
+                width = cuda_width(width)
+            if width >= L:
+                if self._clamps(L, two_piece):
+                    # "band as wide as the full fill": degenerate but
                     # EXACT with zeroed window starts (every offset is
-                    # in-window), and the banded kernels run ~4x faster
-                    # than the plain full fill at tail shapes (measured
-                    # round 5: the mixed-div 128-row extreme tail at
-                    # 7.2 Gcells/s via dp_fill_scores vs ~30 banded) —
-                    # so serve it here instead of refusing
-                    wstart = np.zeros_like(wstart)
-                    width = L
-                cached = (wstart, width)
-                self._prep_cache[key] = cached
-            wstart, width = cached
-            self._last_fill_width = width  # for the cells-filled counter
-            # full-width windows compute every cell: callers may accept
-            # the scores as exact without the <=ub verification
-            self._last_fill_exact = (width >= L
-                                     and int(wstart.max()) == 0)
-            # dynamic_slice clamps starts; guarantee every window fits
-            required_L = _round_up(int(wstart.max()) + width, 128)
-            q_in = qshift
-            if required_L > L:
-                # cache entries pin the source array (identity-checked) so
-                # a recycled id() can never resurface another batch's pad
-                qpad_key = (id(q_in_key), required_L) \
-                    if q_in_key is not None else None
-                entry = self._qpad.get(qpad_key) if qpad_key else None
-                q_in = entry[1] if entry is not None \
-                    and entry[0] is q_in_key else None
-                if q_in is None:
-                    q_in = jnp.concatenate(
-                        [qshift,
-                         jnp.zeros((qshift.shape[0], required_L - L),
-                                   qshift.dtype)],
-                        axis=1,
-                    )
-                    if qpad_key:
-                        self._qpad[qpad_key] = (q_in_key, q_in)
-                        while len(self._qpad) > 8:
-                            self._qpad.pop(next(iter(self._qpad)))
-            if use_pallas:
-                from ..ops.pallas_fill import (
-                    _check_prefetch_fits,
-                    pallas_banded_scores,
-                    pallas_banded_scores_2p,
-                    pallas_banded_scores_big,
-                    pallas_banded_scores_ef,
-                    prepare_banded,
-                    prepare_banded_big,
-                )
-
-                # graphs past the scalar-prefetch SMEM budget stream the
-                # rank+window tables from HBM (big variant; one-piece
-                # global only — other configs fall to the XLA body)
-                use_big = False
-                if not self.ends_free and not two_piece:
-                    try:
-                        _check_prefetch_fits(self.dg, 1 + int(
-                            self.dg.pred_slots.shape[1]))
-                    except ValueError:
-                        use_big = True
-
-                pkey = key + ("prep", use_big)
-                prep = self._prep_cache.get(pkey)
-                if prep is None:
-                    builder = prepare_banded_big if use_big \
-                        else prepare_banded
-                    prep = builder(self.dg, costs, wstart, width,
-                                   int(q_in.shape[1]))
-                    self._prep_cache[pkey] = prep
-                kcap = ins_run_cap(costs, ub, width)
-                try:
-                    if use_big:
-                        return np.asarray(
-                            pallas_banded_scores_big(self.dg, q_in,
-                                                     lengths, costs, prep,
-                                                     max_run=kcap)
-                        )
-                    if self.ends_free:
-                        fs, end_ok, jlo = self._ef_params(lengths)
-                        return np.asarray(
-                            pallas_banded_scores_ef(self.dg, q_in, lengths,
-                                                    costs, prep, fs,
-                                                    end_ok, jlo,
-                                                    max_run=kcap)
-                        )
-                    if two_piece:
-                        return np.asarray(
-                            pallas_banded_scores_2p(self.dg, q_in, lengths,
-                                                    costs, prep=prep,
-                                                    max_run=kcap)
-                        )
-                    return np.asarray(
-                        pallas_banded_scores(self.dg, q_in, lengths, costs,
-                                             prep=prep, max_run=kcap)
-                    )
-                except Exception:
-                    # kernel didn't compile for this shape (e.g. the rings
-                    # exceed scoped VMEM at very wide bands) — remember and
-                    # use the XLA banded path for this length profile
-                    self._prep_cache[("nopallas", n_min, n_max)] = True
-                    use_pallas = False
-                    self._prep_cache.pop(key, None)
-                    if getattr(self, "_last_fill_exact", False):
-                        # clamped full-width band exists only for the
-                        # Pallas kernels; without them _full_scores'
-                        # capped bounded fill is the faster fallback
-                        self._last_fill_exact = False
-                        return None
-                    continue
-            if pallas_mesh:
-                from ..ops.pallas_fill import prepare_banded
-
-                pkey = key + ("prep",)
-                prep = self._prep_cache.get(pkey)
-                if prep is None:
-                    prep = prepare_banded(self.dg, costs, wstart, width,
-                                          int(q_in.shape[1]))
-                    self._prep_cache[pkey] = prep
-                try:
-                    out = self._sharded_pallas_fill(q_in, lengths, prep,
-                                                    two_piece, key)
-                    if out is not None:
-                        return out
-                except Exception:
-                    pass  # fall through to the XLA sharded body
-
-            wkey = key + ("wstarts",)
-            wstarts = self._prep_cache.get(wkey)
-            if wstarts is None:
-                pad = np.zeros(
-                    self.dg.n_nodes_padded - wstart.shape[0], dtype=np.int32
-                )
-                wstarts = jnp.asarray(np.concatenate([wstart, pad]))
-                self._prep_cache[wkey] = wstarts
-            if self.ends_free:
-                fs, end_ok, jlo = self._ef_params(lengths)
-                fn = _banded_exec_ef(self.dg.window, width,
-                                     int(self._pred_ranks.shape[1]),
-                                     costs.gap_open, costs.gap_extend,
-                                     costs.mismatch, fs,
-                                     max_run=_run_cap_for_backend(costs, ub, width))
-                return np.asarray(
-                    fn(self.dg.symbols, self._pred_ranks,
-                       self.dg.pred_valid, wstarts, self.dg.write_slots,
-                       self.dg.end_rank, end_ok, q_in, lengths, jlo)
-                )
-            if two_piece:
-                fn = _banded_exec_2p(self.dg.window, width,
-                                     int(self._pred_ranks.shape[1]),
-                                     costs.gap_open, costs.gap_extend,
-                                     costs.gap_extend2, costs.mismatch,
-                                     vary_axes=("dp",) if use_mesh else ())
-            else:
-                fn = _banded_exec(self.dg.window, width,
-                                  int(self._pred_ranks.shape[1]),
-                                  costs.gap_open, costs.gap_extend,
-                                  costs.mismatch,
-                                  max_run=_run_cap_for_backend(costs, ub, width),
-                                  vary_axes=("dp",) if use_mesh else ())
-            if use_mesh:
-                fn = self._sharded(fn, key)
-            return np.asarray(
-                fn(self.dg.symbols, self._pred_ranks,
-                   self.dg.pred_valid, wstarts, self.dg.write_slots,
-                   self.dg.end_rank, q_in, lengths)
-            )
+                    # in-window)
+                    wstart, width = np.zeros_like(wstart), cuda_width(L)
+                else:
+                    wstart = None
+            cached = (wstart, width)
+            self._prep_cache[key] = cached
+        wstart, width = cached
+        if wstart is None:
+            return None
+        self._last_fill_width = width  # for the cells-filled counter
+        # full-width windows compute every cell: callers may accept the
+        # scores as exact without the <=ub verification
+        self._last_fill_exact = width >= L and int(wstart.max()) == 0
+        req = _round_up(int(wstart.max()) + width, 128)
+        q_in = self._padded_query(q_in_key, qshift, 0, req)
+        tables = self._tables(key, wstart, width)
+        if not two_piece:
+            return self._one_piece_fill(key, tables, q_in, lengths,
+                                        use_mesh)
+        self._executor(width, True)
+        fn = _banded_exec_2p(self.dg.window, width,
+                             int(self._pred_ranks.shape[1]),
+                             costs.gap_open, costs.gap_extend,
+                             costs.gap_extend2, costs.mismatch,
+                             vary_axes=("dp",) if use_mesh else ())
+        if use_mesh:
+            fn = self._sharded(fn, key, (PS(),) * 6 + (PS("dp", None),
+                                                       PS("dp")))
+        return np.asarray(
+            fn(self.dg.symbols, self._pred_ranks, self.dg.pred_valid,
+               tables.wstarts, self.dg.write_slots, self.dg.end_rank,
+               q_in, lengths))
 
     def scores(self, qshift, lengths, ub: Optional[int] = None,
                max_retries: int = 4) -> np.ndarray:
@@ -1625,22 +832,6 @@ class BandedScorer:
         work-proportional-to-score property.
         """
         costs = self.costs
-        B0 = int(qshift.shape[0])
-        if (B0 % 64 and self.mesh is None
-                and jax.default_backend() != "cpu"):
-            # the Pallas banded kernels need 64-row multiples; padding
-            # by cycling the batch keeps them serving instead of the
-            # XLA body (measured on the 32-read hybrid config: 3.4
-            # Gcells/s XLA vs ~37 Pallas — padding doubles the rows and
-            # still wins ~5x).  Cycled duplicates leave n_min/n_max and
-            # the learned-ub keys unchanged.
-            pad_to = -(-B0 // 64) * 64
-            idx = jnp.asarray(np.resize(np.arange(B0), pad_to)
-                              .astype(np.int32))
-            out = self.scores(jnp.take(jnp.asarray(qshift), idx, axis=0),
-                              jnp.take(jnp.asarray(lengths), idx, axis=0),
-                              ub=ub, max_retries=max_retries)
-            return out[:B0]
         # lengths is usually a device array; np.asarray would put a
         # device->host round trip on every call, so cache min/max by array
         # identity.  The cache entry holds a strong reference to the array
@@ -1680,18 +871,12 @@ class BandedScorer:
             ub = self._ub_hint.get((n_min, n_max)) or guess
 
         # with a mesh, the read batch shards over dp via shard_map around
-        # the XLA banded fill (single-kernel-per-shard; no collectives);
+        # the banded fill (one fill per shard; no collectives);
         # subset gathers would break dp divisibility, so mesh mode retries
         # the whole batch instead of tiering
         use_mesh = (
             self.mesh is not None
             and int(qshift.shape[0]) % self.mesh.shape.get("dp", 1) == 0
-        )
-        use_pallas = (
-            not use_mesh
-            and jax.default_backend() != "cpu"
-            and int(qshift.shape[0]) % 64 == 0
-            and not self._prep_cache.get(("nopallas", n_min, n_max))
         )
 
         if two_piece and self.ends_free:
@@ -1731,16 +916,14 @@ class BandedScorer:
             if (drift_ok
                     and cur_n_max - cur_n_min >= self.DRIFT_MIN_SPREAD):
                 # per-read drifting windows: width stops paying the
-                # batch's length spread (VERDICT r1 weak #2); engages
+                # batch's length spread; engages
                 # only when genuinely narrower than the shared layout
                 sub = self._fill_once_drift(q_cur_key, q_cur, l_cur, ub,
                                             cur_n_min, cur_n_max, use_mesh)
             if sub is None:
                 sub = self._fill_once(q_cur_key, q_cur, l_cur, ub,
-                                      cur_n_min, cur_n_max,
-                                      use_pallas, use_mesh, two_piece)
-            use_pallas = use_pallas and not self._prep_cache.get(
-                ("nopallas", cur_n_min, cur_n_max))
+                                      cur_n_min, cur_n_max, use_mesh,
+                                      two_piece)
             if sub is None:
                 break  # no applicable banded engine for this shape
             self.last_attempts += 1
@@ -1765,15 +948,15 @@ class BandedScorer:
             if done.all():
                 # Pick the starting tier for future calls by modeled cost:
                 # first-fill work is width(tier) x B, plus the unresolved
-                # tail refilled at the final tier's width (padded to the
-                # kernel's batch granularity).  Clustered score
+                # tail refilled at the final tier's width (padded as
+                # _pad_rows pads retry tails).  Clustered score
                 # distributions choose the final tier (one fill);
                 # heavy-tailed ones keep the bulk in narrow bands.
                 def _width_of(u):
                     return band_windows(self.flat, n_min, n_max, costs, u,
                                         aln_type=self.aln_type)[1]
 
-                _pad = _pad_to_pow2_blocks
+                _pad = self._pad_rows
 
                 # Model the cost of starting future calls at tier i as the
                 # observed remainder of the ladder: the tier-i fill runs
@@ -1824,10 +1007,8 @@ class BandedScorer:
                                             aln_type=self.aln_type)[1]
 
                     n_above = int((fs > cand_q).sum())
-                    t_all = (_pad_to_pow2_blocks(len(rem)) if use_pallas
-                             else len(rem))
-                    t_abv = (_pad_to_pow2_blocks(n_above) if use_pallas
-                             else n_above)
+                    t_all = self._pad_rows(len(rem))
+                    t_abv = self._pad_rows(n_above)
                     nn = max(self.flat.n_nodes, 1)
                     ov = self.TIER_OVERHEAD_CELLS / nn
                     cost_max = _w(min(top, grown)) * t_all + ov
@@ -1838,13 +1019,9 @@ class BandedScorer:
             if use_mesh:
                 # whole-batch retry (no subset gathers under the mesh)
                 continue
-            # gather the unresolved reads into a padded sub-batch; pad to
-            # power-of-two block counts so retry tails of varying sizes
-            # reuse a bounded set of compiled kernels
-            pad_to = len(rem)
-            if use_pallas:
-                pad_to = _pad_to_pow2_blocks(len(rem))
-            idx = np.resize(rem, pad_to)
+            # gather the unresolved reads into a padded sub-batch (see
+            # _pad_rows)
+            idx = np.resize(rem, self._pad_rows(len(rem)))
             idx_dev = jnp.asarray(idx)
             q_cur = jnp.take(qshift, idx_dev, axis=0)
             l_cur = jnp.take(lengths, idx_dev, axis=0)
@@ -1855,7 +1032,7 @@ class BandedScorer:
 
         self.stats["fullfill_fallbacks"] += 1
         # NB: map_idx may be pow2-padded with duplicates; count the
-        # distinct unresolved reads, not the padded length (a one-read
+        # distinct unresolved reads, not the padded length (a 33-read
         # tail padded to 64 must still take the tail-only path at B=64)
         if self.last_attempts > 0 and len(np.unique(map_idx)) < B:
             # the band resolved most of the batch; full-fill only the
@@ -1902,93 +1079,3 @@ class BandedScorer:
                 self._ub_hint[(n_min, n_max)] = tight
                 del self._prep_cache[("fullfill", n_min, n_max)]
         return scores
-
-    def _sharded_pallas_fill(self, q_in, lengths, prep, two_piece, key):
-        """Pallas banded fill inside shard_map over the dp axis.
-
-        Graph/window tables replicate; each shard runs the same kernel on
-        its read slab — no collectives, so dp can span hosts over DCN
-        while the per-chip fill stays VMEM-resident.  Returns None when
-        the per-shard batch doesn't divide into kernel blocks.
-        """
-        from jax.sharding import PartitionSpec as PS
-
-        from ..ops import pallas_fill as pf
-
-        dp = self.mesh.shape.get("dp", 1)
-        B, L = int(q_in.shape[0]), int(q_in.shape[1])
-        if B % dp:
-            return None
-        B_shard = B // dp
-        if B_shard % 64:
-            return None
-        skey = key + ("spallas", B, L)
-        sfn = self._prep_cache.get(skey)
-        if sfn is None:
-            margin, width = prep["margin"], prep["width"]
-            P_ = int(self.dg.pred_slots.shape[1])
-            costs = self.costs
-            if two_piece:
-                blk = pf.pick_b_blk(self.dg.window, 2 * margin + width, L,
-                                    4, n_rings=3)
-                while B_shard % blk:
-                    blk //= 2
-                inner = pf._banded_exec_2p(
-                    B_shard // blk, self.dg.window, P_, width, margin, L,
-                    costs.gap_open, costs.gap_extend, costs.gap_extend2,
-                    costs.mismatch, B_BLK=blk)
-            else:
-                dtype = pf.score_dtype(self.dg.n_nodes_padded, L,
-                                       costs.gap_open, costs.gap_extend,
-                                       costs.mismatch)
-                use_int16 = dtype == jnp.int16
-                blk = pf.pick_b_blk(self.dg.window, 2 * margin + width, L,
-                                    2 if use_int16 else 4)
-                while B_shard % blk:
-                    blk //= 2
-                inner = pf._banded_exec(
-                    B_shard // blk, self.dg.window, P_, width, margin, L,
-                    costs.gap_open, costs.gap_extend, costs.mismatch,
-                    B_BLK=blk, use_int16=use_int16,
-                    # key = (n_min, n_max, ub, ...): the fill's ub bounds
-                    # the insertion-run cap (see ins_run_cap)
-                    max_run=ins_run_cap(costs, key[2], width))
-            mapped = jax.shard_map(
-                inner,
-                mesh=self.mesh,
-                in_specs=(PS(),) * 7 + (PS("dp", None), PS("dp"), PS()),
-                out_specs=PS("dp"),
-            )
-            sfn = jax.jit(mapped)
-            self._prep_cache[skey] = sfn
-        return np.asarray(
-            sfn(self.dg.symbols, self.dg.pred_slots_flat,
-                self.dg.pred_valid_flat, prep["pred_wstarts"],
-                prep["wstarts"], self.dg.write_slots, self.dg.meta,
-                q_in, lengths, prep["w_end"])
-        )
-
-    def _sharded(self, fn, key):
-        """shard_map the banded fill over the mesh's dp axis.
-
-        Graph and window tables replicate; each shard fills its own reads
-        independently (lasagna's data parallelism, ``lasagna.rs:214-273``,
-        as a mesh axis).  dp can span hosts over DCN — no collectives run
-        inside the fill.
-        """
-        skey = key + ("sharded",)
-        sfn = self._prep_cache.get(skey)
-        if sfn is not None:
-            return sfn
-        from jax.sharding import PartitionSpec as PS
-
-        mapped = jax.shard_map(
-            fn,
-            mesh=self.mesh,
-            in_specs=(PS(), PS(), PS(), PS(), PS(), PS(),
-                      PS("dp", None), PS("dp")),
-            out_specs=PS("dp"),
-        )
-        sfn = jax.jit(mapped)
-        self._prep_cache[skey] = sfn
-        return sfn

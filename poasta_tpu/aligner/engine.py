@@ -13,10 +13,10 @@ This is a from-scratch reimplementation of the reference's search semantics
    M, D, I [, D2, I2]), its depth-first greedy match extension, and its
    bubble-based pruning, so the resulting score tables — and hence the
    backtrace — match the reference exactly.
-2. **Oracle for the TPU engine.**  Every Pallas/XLA wavefront kernel is
+2. **Oracle for the device engine.**  Every XLA/CUDA wavefront fill is
    validated against this engine's scores on randomized graphs/queries.
 
-The TPU throughput path lives in :mod:`poasta_tpu.aligner.wavefront`; this
+The device throughput path lives in :mod:`poasta_tpu.aligner.wavefront`; this
 module is pure host Python and deliberately favors clarity over speed.
 """
 

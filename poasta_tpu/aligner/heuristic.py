@@ -2,7 +2,7 @@
 
 All heuristics are admissible lower bounds on the remaining alignment cost;
 they change search order only, never the optimal score.  The same bounds
-power the TPU engine's wavefront banding (per-rank feasible offset windows).
+power the device engine's wavefront banding (per-rank feasible offset windows).
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
-"""TPU wavefront engine: batched dense gap-affine POA alignment.
+"""Wavefront engine: batched dense gap-affine POA alignment on the device.
 
-This is the throughput path of the framework — the TPU-native redesign of
+This is the throughput path of the framework — the accelerator redesign of
 the reference's A* search (``src/aligner/astar.rs``): instead of popping
 one (node, offset, state) at a time from a bucket queue, the whole
 (topo-rank × query-offset) state space is filled as a masked batched scan.
@@ -9,7 +9,7 @@ Layout and mapping to the hardware:
 
 * **Offsets are lanes.** Each rank-row update is elementwise over the
   query-offset axis (padded to a multiple of 128) and the read batch —
-  VPU-shaped work.  The affine insertion chain collapses to one
+  elementwise min/add work.  The affine insertion chain collapses to one
   ``lax.cummin`` per row (see :mod:`poasta_tpu.ops.dp_rows`).
 * **Ranks are a `lax.scan`.**  Topological order guarantees predecessor
   rows are final; the carry is a ring buffer of the last ``W`` rows where
@@ -143,9 +143,8 @@ def _next_pow2(x: int) -> int:
 class DeviceGraph:
     """Static, bucket-padded device-side view of a flat graph.
 
-    Everything a fill kernel needs per call is precomputed here once —
-    per-call host↔device transfers (and the implied round trips, which
-    dominate dispatch latency on tethered TPUs) are zero.
+    Everything a fill needs per call is precomputed here once, so
+    per-call host↔device transfers are zero.
     """
 
     symbols: jnp.ndarray  # (Np,) int32; padding rows are symbol -1
@@ -169,9 +168,8 @@ class DeviceGraph:
               place_on_device: bool = True) -> "DeviceGraph":
         """``place_on_device=False`` keeps every array host-side (numpy):
         jnp ops coerce them per call, so it trades per-call uploads for
-        never touching the backend — for entry points that must not
-        block on device init (a tethered accelerator's first device op
-        hangs indefinitely when the link is down)."""
+        never touching the backend (for entry points that must not
+        initialise a device)."""
         n = flat.n_nodes
         P = _next_pow2(max(1, flat.max_in_degree))
         np_nodes = _round_up(n, node_bucket)
@@ -180,8 +178,8 @@ class DeviceGraph:
         # until its last reader (max successor rank).  Greedy interval
         # coloring gives K = peak number of simultaneously-live rows —
         # typically ~4 for POA graphs vs. the 2^ceil(log2(max edge span))
-        # a modulo ring would need — which is what bounds VMEM and hence
-        # the batch block size.
+        # a modulo ring would need — which is what bounds the banded
+        # kernel's shared memory per read.
         counts = np.diff(flat.pred_ptr.astype(np.int64))
         readers = np.repeat(np.arange(n, dtype=np.int64), counts)
         last_use = np.arange(n, dtype=np.int64)
@@ -697,27 +695,11 @@ def _scores_exec_bounded_ends(window: int, o: int, e: int, x: int,
 
 
 @functools.lru_cache(maxsize=None)
-def _sharded_bounded_scores(window, o, e, x, free_start, mesh, use_pallas,
-                            shard_shape, two_piece_params=None):
+def _sharded_bounded_scores(window, o, e, x, free_start, mesh,
+                            two_piece_params=None):
     """shard_map of the bounded (scores-only) body over dp — the serving
     scorer path; no end-anchor tracking overhead."""
     from jax.sharding import PartitionSpec as PS
-
-    if use_pallas and two_piece_params is None:
-        from ..ops.pallas_fill import _pallas_exec_bounded, pick_b_blk
-
-        B_shard, L, W, P = shard_shape
-        blk = pick_b_blk(W, L, L, 4, n_rings=3)
-        while B_shard % blk:
-            blk //= 2
-        inner = _pallas_exec_bounded(B_shard // blk, W, P, L, o, e, x,
-                                     B_BLK=blk, free_start=free_start)
-        return jax.jit(jax.shard_map(
-            inner, mesh=mesh,
-            in_specs=(PS(),) * 6 + (PS("dp", None), PS("dp"), PS("dp")),
-            out_specs=PS("dp"),
-            check_vma=False,
-        ))
 
     body = _scores_exec_bounded(window, o, e, x, free_start,
                                 two_piece_params, vary_axes=("dp",))
@@ -729,39 +711,14 @@ def _sharded_bounded_scores(window, o, e, x, free_start, mesh, use_pallas,
 
 
 @functools.lru_cache(maxsize=None)
-def _sharded_bounded_ends(window, o, e, x, free_start, mesh, use_pallas,
-                          shard_shape, two_piece_params=None):
+def _sharded_bounded_ends(window, o, e, x, free_start, mesh,
+                          two_piece_params=None):
     """shard_map of the bounded-ends body over the mesh's dp axis.
 
     Graph arrays + end_ok replicate; the batch (qshift/lengths/jlo)
-    shards over dp.  On accelerator backends each shard runs the Pallas
-    bounded-ends kernel; otherwise the XLA body with varying carries.
+    shards over dp.
     """
     from jax.sharding import PartitionSpec as PS
-
-    if use_pallas:
-        from ..ops.pallas_fill import _pallas_exec_bounded_ends, pick_b_blk
-
-        B_shard, L, W, P = shard_shape
-        blk = pick_b_blk(W, L, L, 4, n_rings=4)
-        while B_shard % blk:
-            blk //= 2
-        inner = _pallas_exec_bounded_ends(B_shard // blk, W, P, L, o, e, x,
-                                          B_BLK=blk,
-                                          free_start=free_start)
-
-        def body(symbols, pred_slots, pred_valid, write_slots, end_ok,
-                 meta, qshift, lengths, jlo):
-            return inner(symbols, pred_slots, pred_valid, write_slots,
-                         end_ok, meta, qshift, lengths, jlo)
-
-        return jax.jit(jax.shard_map(
-            body, mesh=mesh,
-            in_specs=(PS(),) * 6 + (PS("dp", None), PS("dp"), PS("dp")),
-            out_specs=(PS("dp"), PS("dp"), PS("dp")),
-            # pallas_call outputs carry no vma annotation; skip the check
-            check_vma=False,
-        ))
 
     body = _scores_exec_bounded_ends(window, o, e, x, free_start,
                                      vary_axes=("dp",),
@@ -773,358 +730,72 @@ def _sharded_bounded_ends(window, o, e, x, free_start, mesh, use_pallas,
     ))
 
 
+def _dp_divides(mesh, qshift) -> bool:
+    return (mesh is not None
+            and int(qshift.shape[0]) % mesh.shape.get("dp", 1) == 0)
+
+
 def dp_fill_ends_free_with_ends(dg: DeviceGraph, flat: FlatGraph, qshift,
-                                lengths, costs, aln_type,
-                                engine: str = "auto", mesh=None,
-                                max_run: int = 0):
-    """(scores, end_ranks, end_offsets) for an ends-free span (one-piece).
+                                lengths, costs, aln_type, mesh=None):
+    """(scores, end_ranks, end_offsets) for an ends-free span.
 
     The end state is each read's optimal permitted (rank, offset) — the
     anchor for the native corridor backtrace
     (``NativeAligner.align_anchored``); ties resolve to the LARGEST
-    offset, then the lowest rank (the same convention as the kernels and
-    ``backtrace_dense_ends_free``).
-
-    Two-piece costs run the 5-state Pallas with-ends kernels on the
-    single-device path (standard or HBM-streamed big, round 3); the
-    dp-sharded 2p body and the CPU backend use the 5-layer XLA
-    recurrence.
+    offset, then the lowest rank (the same convention as
+    ``backtrace_dense_ends_free``).  Two-piece costs run the 5-layer
+    recurrence.  With a ``mesh`` whose dp axis divides the batch, the
+    batch shards over dp.
     """
     two_piece = getattr(costs, "is_two_piece", False)
     tp_params = ((costs.gap_open2, costs.gap_extend2) if two_piece
                  else None)
     free_start, end_ok, jlo = ends_free_device_params(
         flat, aln_type, lengths, dg.n_nodes_padded, two_piece=two_piece)
-    if mesh is not None:
-        dp = mesh.shape.get("dp", 1)
-        B, L = int(qshift.shape[0]), int(qshift.shape[1])
-        if B % dp == 0:
-            use_pallas = False
-            if (engine in ("auto", "pallas")
-                    and not two_piece
-                    and jax.default_backend() != "cpu"
-                    and (B // dp) % 64 == 0):
-                try:
-                    from ..ops.pallas_fill import _check_prefetch_fits
-
-                    _check_prefetch_fits(dg, 1)
-                    use_pallas = True
-                except ValueError:
-                    use_pallas = False
-            shape = (B // dp, L, dg.window, int(dg.pred_slots.shape[1]))
-            if use_pallas:
-                try:
-                    fn = _sharded_bounded_ends(
-                        dg.window, costs.gap_open, costs.gap_extend,
-                        costs.mismatch, free_start, mesh, True, shape)
-                    return fn(dg.symbols, dg.pred_slots_flat,
-                              dg.pred_valid_flat, dg.write_slots, end_ok,
-                              dg.meta, qshift, lengths, jlo)
-                except Exception:
-                    if engine == "pallas":
-                        raise
-                    # compile failure (VMEM at long L): XLA shard body
-            fn = _sharded_bounded_ends(
-                dg.window, costs.gap_open, costs.gap_extend,
-                costs.mismatch, free_start, mesh, False, shape,
-                two_piece_params=tp_params)
-            return fn(dg.symbols, dg.pred_slots, dg.pred_valid,
-                      dg.write_slots, dg.end_rank, end_ok, qshift,
-                      lengths, jlo)
-        # batch doesn't divide: single-device path below
-    if engine in ("auto", "pallas") and (
-            engine == "pallas" or jax.default_backend() != "cpu"):
-        # engine='pallas' always enters (and raises on failure — the
-        # capped ladders' contract), even on CPU where auto would skip
-        from ..ops.pallas_fill import (
-            _check_prefetch_fits,
-            pallas_bounded_with_ends,
-            pallas_bounded_with_ends_2p,
-            pallas_bounded_with_ends_big,
-            pallas_bounded_with_ends_big_2p,
-        )
-
-        key = ("bounded_ends", dg.window, dg.symbols.shape[0],
-               qshift.shape[0], qshift.shape[1], free_start,
-               costs.gap_open, costs.gap_extend, costs.mismatch,
-               tp_params)
-        if key in _PALLAS_FAILED and engine == "pallas":
-            # honor the raises-on-fallback contract the capped ladders
-            # rely on: silently serving the XLA body here would make
-            # them refill identical exact scores tier after tier
-            raise RuntimeError(
-                "pallas with-ends fill previously failed for this config")
-        if key not in _PALLAS_FAILED:
-            try:
-                kw = {}
-                try:
-                    _check_prefetch_fits(dg, 1)
-                    fill = (pallas_bounded_with_ends_2p if two_piece
-                            else pallas_bounded_with_ends)
-                except ValueError:
-                    fill = (pallas_bounded_with_ends_big_2p if two_piece
-                            else pallas_bounded_with_ends_big)
-                if max_run:
-                    # insertion-run cap: caller's verify-and-retry
-                    # contract (see BatchMapper._align_batch_ends_free)
-                    kw["max_run"] = max_run
-                B, qp, lp, jl = _pad_batch(qshift, lengths, jlo)
-                s, er, ej = fill(dg, qp, lp, costs, free_start, end_ok,
-                                 jl, **kw)
-                return s[:B], er[:B], ej[:B]
-            except Exception:
-                if engine == "pallas":
-                    raise
-                _PALLAS_FAILED.add(key)
-    fn = _scores_exec_bounded_ends(dg.window, costs.gap_open,
-                                   costs.gap_extend, costs.mismatch,
-                                   free_start, two_piece_params=tp_params)
+    if _dp_divides(mesh, qshift):
+        fn = _sharded_bounded_ends(
+            dg.window, costs.gap_open, costs.gap_extend, costs.mismatch,
+            free_start, mesh, two_piece_params=tp_params)
+    else:
+        fn = _scores_exec_bounded_ends(dg.window, costs.gap_open,
+                                       costs.gap_extend, costs.mismatch,
+                                       free_start, two_piece_params=tp_params)
     return fn(dg.symbols, dg.pred_slots, dg.pred_valid, dg.write_slots,
               dg.end_rank, end_ok, qshift, lengths, jlo)
 
 
 def dp_fill_scores_ends_free(dg: DeviceGraph, flat: FlatGraph, qshift,
                              lengths, costs, aln_type,
-                             engine: str = "auto", mesh=None,
-                             max_run: int = 0) -> jnp.ndarray:
+                             mesh=None) -> jnp.ndarray:
     """(B,) optimal ends-free scores with Included/Excluded/Unbounded
     bounds on the graph/query free ends (reference:
     ``gap_affine.rs:150-248``).  ``qry_free_begin`` is parsed-but-ignored,
     faithfully to the reference.
     """
     two_piece = getattr(costs, "is_two_piece", False)
+    tp_params = ((costs.gap_open2, costs.gap_extend2) if two_piece
+                 else None)
     free_start, end_ok, jlo = ends_free_device_params(
         flat, aln_type, lengths, dg.n_nodes_padded, two_piece=two_piece)
-    if mesh is not None:
-        dp = mesh.shape.get("dp", 1)
-        B, L = int(qshift.shape[0]), int(qshift.shape[1])
-        if B % dp == 0:
-            tp_params = ((costs.gap_open2, costs.gap_extend2)
-                         if two_piece else None)
-            use_pallas = (engine in ("auto", "pallas")
-                          and not two_piece
-                          and jax.default_backend() != "cpu"
-                          and (B // dp) % 64 == 0)
-            if use_pallas:
-                try:
-                    from ..ops.pallas_fill import _check_prefetch_fits
-
-                    _check_prefetch_fits(dg, 1)
-                except ValueError:
-                    use_pallas = False
-            shape = (B // dp, L, dg.window, int(dg.pred_slots.shape[1]))
-            if use_pallas:
-                try:
-                    fn = _sharded_bounded_scores(
-                        dg.window, costs.gap_open, costs.gap_extend,
-                        costs.mismatch, free_start, mesh, True, shape)
-                    return fn(dg.symbols, dg.pred_slots_flat,
-                              dg.pred_valid_flat, dg.write_slots, end_ok,
-                              dg.meta, qshift, lengths, jlo)
-                except Exception:
-                    if engine == "pallas":
-                        raise
-            fn = _sharded_bounded_scores(
-                dg.window, costs.gap_open, costs.gap_extend,
-                costs.mismatch, free_start, mesh, False, shape,
-                two_piece_params=tp_params)
-            return fn(dg.symbols, dg.pred_slots, dg.pred_valid,
-                      dg.write_slots, dg.end_rank, end_ok, qshift,
-                      lengths, jlo)
-    if engine in ("auto", "pallas"):
-        from ..ops.pallas_fill import (
-            _check_prefetch_fits,
-            pallas_fill_scores_bounded,
-            pallas_fill_scores_bounded_2p,
-            pallas_fill_scores_bounded_big,
-        )
-
-        key = ("bounded", two_piece, dg.window, dg.symbols.shape[0],
-               qshift.shape[0], qshift.shape[1], free_start,
-               costs.gap_open, costs.gap_extend, costs.mismatch,
-               getattr(costs, "gap_open2", 0),
-               getattr(costs, "gap_extend2", 0))
-        if jax.default_backend() != "cpu" or engine == "pallas":
-            if key in _PALLAS_FAILED and engine == "pallas":
-                # raises-on-fallback contract (see the with-ends twin)
-                raise RuntimeError(
-                    "pallas bounded fill previously failed for this config")
-            if key not in _PALLAS_FAILED:
-                try:
-                    # graphs past the scalar-prefetch SMEM budget stream
-                    # their rank tables from HBM instead (big variant;
-                    # one-piece only — two-piece big graphs fall through
-                    # to the XLA body)
-                    if two_piece:
-                        _check_prefetch_fits(dg, 1)
-                        fill = pallas_fill_scores_bounded_2p
-                    else:
-                        try:
-                            _check_prefetch_fits(dg, 1)
-                            fill = pallas_fill_scores_bounded
-                        except ValueError:
-                            fill = pallas_fill_scores_bounded_big
-
-                    kw = {"max_run": max_run} if max_run else {}
-                    B, qp, lp, jl = _pad_batch(qshift, lengths, jlo)
-                    return fill(
-                        dg, qp, lp, costs, free_start, end_ok, jl,
-                        **kw)[:B]
-                except Exception:
-                    if engine == "pallas":
-                        raise
-                    _PALLAS_FAILED.add(key)
-    if two_piece:
-        fn = _scores_exec_bounded(dg.window, costs.gap_open,
-                                  costs.gap_extend, costs.mismatch,
-                                  free_start,
-                                  (costs.gap_open2, costs.gap_extend2))
+    if _dp_divides(mesh, qshift):
+        fn = _sharded_bounded_scores(
+            dg.window, costs.gap_open, costs.gap_extend, costs.mismatch,
+            free_start, mesh, two_piece_params=tp_params)
     else:
         fn = _scores_exec_bounded(dg.window, costs.gap_open,
                                   costs.gap_extend, costs.mismatch,
-                                  free_start)
+                                  free_start, tp_params)
     return fn(dg.symbols, dg.pred_slots, dg.pred_valid, dg.write_slots,
               dg.end_rank, end_ok, qshift, lengths, jlo)
 
 
-def _pad_batch(qshift, lengths, jlo=None, block=None):
-    """Pad a batch to a kernel-block multiple (shared by every pallas
-    dispatch site; jlo pads with 1 so padded rows have an empty-ish
-    window)."""
-    from ..ops.pallas_fill import B_BLK
-
-    blk = block or B_BLK
-    B = qshift.shape[0]
-    pad = (-B) % blk
-    if pad:
-        qshift = jnp.concatenate(
-            [qshift, jnp.zeros((pad, qshift.shape[1]), qshift.dtype)])
-        lengths = jnp.concatenate(
-            [lengths, jnp.zeros((pad,), lengths.dtype)])
-        if jlo is not None:
-            jlo = jnp.concatenate([jlo, jnp.ones((pad,), jlo.dtype)])
-    return B, qshift, lengths, jlo
-
-
-_PALLAS_FAILED: set = set()
-
-
-def _try_pallas(fill_fn, dg, qshift, lengths, costs, free_start, free_end,
-                engine, key):
-    """Pad the batch to a B_BLK multiple and run a pallas fill kernel.
-
-    Returns None when the kernel isn't applicable (CPU backend under
-    "auto") or failed to compile (the failure is memoized in
-    ``_PALLAS_FAILED`` by ``key`` — shape/config-based, NOT id(dg),
-    because object ids get recycled after gc and could mask a live
-    graph's working config behind a dead graph's recorded failure).
-    """
-    from ..ops.pallas_fill import B_BLK
-
-    if jax.default_backend() == "cpu" and engine != "pallas":
-        return None
-    if key in _PALLAS_FAILED:
-        return None
-    B = qshift.shape[0]
-    try:
-        pad = (-B) % B_BLK
-        if pad:
-            qp = jnp.concatenate(
-                [qshift, jnp.zeros((pad, qshift.shape[1]), qshift.dtype)]
-            )
-            lp = jnp.concatenate([lengths, jnp.zeros((pad,), lengths.dtype)])
-            return fill_fn(dg, qp, lp, costs, free_start, free_end)[:B]
-        return fill_fn(dg, qshift, lengths, costs, free_start, free_end)
-    except Exception:
-        if engine == "pallas":
-            raise
-        # compile failures are permanent for a given shape/config:
-        # remember them so "auto" doesn't re-pay a failed compile
-        _PALLAS_FAILED.add(key)
-        return None
-
-
-# (id(dg), free_end) -> (dg ref, end_ok) global/semi-global end masks for
-# the big-graph kernel; the dg reference pins the id, LRU-bounded
-_BIG_MASKS: dict = {}
-
-
-def _big_end_mask(dg, free_end: bool):
-    key = (id(dg), free_end)
-    ent = _BIG_MASKS.get(key)
-    if ent is not None and ent[0] is dg:
-        return ent[1]
-    eo = np.zeros(dg.n_nodes_padded, dtype=np.int32)
-    if free_end:
-        # real ranks + virtual end; rank 0 excluded to match the
-        # unbounded free-end semantics of _scores_exec / _fill_kernel
-        eo[1: dg.n_nodes] = 1
-    else:
-        eo[dg.end_rank_i] = 1
-    mask = jnp.asarray(eo)
-    _BIG_MASKS[key] = (dg, mask)
-    while len(_BIG_MASKS) > 8:
-        _BIG_MASKS.pop(next(iter(_BIG_MASKS)))
-    return mask
-
-
 def dp_fill_scores(dg: DeviceGraph, qshift: jnp.ndarray, lengths: jnp.ndarray,
                    costs, free_start: bool = False,
-                   free_end: bool = False, engine: str = "auto") -> jnp.ndarray:
-    """(B,) optimal alignment scores for a packed read batch.
-
-    ``engine``: "auto" prefers the Pallas kernel on accelerator backends
-    (VMEM-resident rings; ~3x the XLA scan) and falls back to the XLA path
-    on CPU or for configurations the kernel doesn't cover.  Two-piece cost
-    models run the 5-layer XLA scan.
-    """
-    two_piece = getattr(costs, "is_two_piece", False)
-    if engine in ("auto", "pallas"):
-        from ..ops.pallas_fill import pallas_fill_scores, pallas_fill_scores_2p
-
-        shape_key = (dg.window, dg.symbols.shape[0], qshift.shape[0],
-                     qshift.shape[1], free_start, free_end)
-        if two_piece:
-            key = ("2p", *shape_key, costs.gap_open, costs.gap_extend,
-                   costs.gap_extend2, costs.mismatch)
-            fill_fn = pallas_fill_scores_2p
-        else:
-            key = (*shape_key, costs.gap_open, costs.gap_extend,
-                   costs.mismatch)
-            fill_fn = pallas_fill_scores
-        out = _try_pallas(fill_fn, dg, qshift, lengths, costs,
-                          free_start, free_end, engine, key)
-        if out is not None:
-            return out
-        # graphs past the scalar-prefetch SMEM budget: the big variant
-        # streams rank tables HBM->SMEM (measured ~25x the XLA body at
-        # 100k nodes); its bounded formulation with an end-rank-only
-        # mask and jlo = n reproduces the global (and unbounded
-        # free-end) semantics exactly
-        if (not two_piece and jax.default_backend() != "cpu"
-                and ("big", *key) not in _PALLAS_FAILED):
-            try:
-                from ..ops.pallas_fill import (
-                    _check_prefetch_fits,
-                    pallas_fill_scores_bounded_big,
-                )
-
-                needs_big = False
-                try:
-                    _check_prefetch_fits(dg, 0)
-                except ValueError:
-                    needs_big = True
-                if needs_big:
-                    B, qp, lp, _ = _pad_batch(qshift, lengths)
-                    end_ok = _big_end_mask(dg, free_end)
-                    jlo = lp.astype(jnp.int32)
-                    return pallas_fill_scores_bounded_big(
-                        dg, qp, lp, costs, free_start, end_ok, jlo)[:B]
-            except Exception:
-                if engine == "pallas":
-                    raise
-                _PALLAS_FAILED.add(("big", *key))
-    if two_piece:
+                   free_end: bool = False) -> jnp.ndarray:
+    """(B,) optimal alignment scores for a packed read batch: the full
+    (unbanded) fill as one ``lax.scan`` over ranks.  Two-piece cost
+    models run the 5-layer recurrence."""
+    if getattr(costs, "is_two_piece", False):
         fn = _scores_exec_2p(dg.window, costs.gap_open, costs.gap_extend,
                              costs.gap_extend2, costs.mismatch,
                              free_start, free_end)

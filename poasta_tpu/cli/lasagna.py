@@ -43,8 +43,8 @@ def align_subcommand(args):
     # need no collectives at all — each process aligns a round-robin
     # slice of the read stream and writes its own output shard
     # (<output>.part<pid>; concatenate when done).  This is the
-    # TPU-native shape of the reference's fan-out/fan-in worker pool
-    # (lasagna.rs:214-273) scaled over DCN.  Decided BEFORE opening any
+    # accelerator shape of the reference's fan-out/fan-in worker pool
+    # (lasagna.rs:214-273) scaled over hosts.  Decided BEFORE opening any
     # file so no process ever truncates the shared output path.
     multi_host = False
     out_path = args.output
@@ -134,13 +134,11 @@ def align_subcommand(args):
             mesh = parse_mesh_spec(args.mesh)
         batch_size = args.batch_size
         if mesh is not None:
-            # the dp shard path needs the batch to split evenly over dp
-            # (ideally into 64-row kernel blocks per shard); round the
-            # batch size up so full batches always take the mesh path —
-            # tail batches fall back to single-device automatically
+            # the dp shard path needs the batch to split evenly over dp;
+            # round the batch size up so full batches always take the
+            # mesh path — tail batches run single-device
             dp = mesh.shape.get("dp", 1)
-            quantum = 64 * dp
-            batch_size = ((batch_size + quantum - 1) // quantum) * quantum
+            batch_size = ((batch_size + dp - 1) // dp) * dp
             if args.verbose:
                 print(
                     f"INFO: mesh dp={dp} sp={mesh.shape.get('sp', 1)} "
@@ -215,7 +213,7 @@ def _flush_sorted(mapper, chunk, batch_size, emit_record, verbose=0):
         if scorer is not None:
             s = scorer.stats
             msg += (f" (device fills: {s['fills']}, cells: {s['cells_filled']}"
-                    f", tiers: {s['tiers']})")
+                    f", tiers: {s['tiers']}, xla fills: {s['xla_fills']})")
             scorer.reset_stats()
         ef = getattr(mapper, "last_ends_free_stats", None)
         if ef:
@@ -223,17 +221,12 @@ def _flush_sorted(mapper, chunk, batch_size, emit_record, verbose=0):
                     f" host {ef['host_s']:.2f}s,"
                     f" ok {ef['anchored_ok']},"
                     f" exact-fallback {ef['exact_fallback']}]")
-        sd = getattr(mapper, "last_seed_stats", None)
-        if sd:
-            msg += (f" [seeded corridors: {sd['seeded']} seeded,"
-                    f" {sd['seed_tail']} tail, k={sd['seed_k']},"
-                    f" attempts {sd.get('seed_attempts', 1)}]")
         print(msg, file=sys.stderr)
 
 
 def build_parser():
     p = argparse.ArgumentParser(prog="lasagna",
-                                description="Read-to-graph aligner (TPU-native)")
+                                description="Read-to-graph aligner")
     p.add_argument("-v", "--verbose", action="count", default=0)
     sub = p.add_subparsers(dest="command")
 
@@ -270,7 +263,7 @@ def build_parser():
                         "sets explicit data/sequence-parallel axis sizes")
     a.add_argument("--distributed", action="store_true",
                    help="call jax.distributed.initialize() before backend "
-                        "init so the dp axis spans hosts over DCN "
+                        "init so the read stream spans processes "
                         "(coordinator/process settings come from the "
                         "flags below or the standard JAX env vars)")
     a.add_argument("--coordinator-address", default=None,
@@ -279,6 +272,10 @@ def build_parser():
                    help="total process count (with --distributed)")
     a.add_argument("--process-id", type=int, default=None,
                    help="this process's index (with --distributed)")
+    a.add_argument("--local-device-ids", default=None, metavar="I[,J...]",
+                   help="with --distributed: the cards of this host this "
+                        "process drives (e.g. its process index when "
+                        "several processes share a host, one card each)")
     a.add_argument("--shard-index", type=int, default=None,
                    help="standalone shard recovery: align only round-robin "
                         "slice K of the read stream and write "
@@ -301,10 +298,10 @@ def main(argv=None):
               "the shard)", file=sys.stderr)
         return 1
     if getattr(args, "distributed", False):
-        # must run before anything initializes a backend: the multi-host
-        # runtime wires every process's local devices into one global
-        # device list, which `--mesh auto` then spans (dp rides DCN
-        # across hosts — it has no intra-fill communication)
+        # must run before anything initializes a backend: the runtime
+        # wires every process's local devices into one global device
+        # list; each process then maps its own slice of the read stream
+        # on its local devices (dp has no intra-fill communication)
         import jax
 
         kwargs = {}
@@ -314,6 +311,9 @@ def main(argv=None):
             kwargs["num_processes"] = args.num_processes
         if args.process_id is not None:
             kwargs["process_id"] = args.process_id
+        if args.local_device_ids is not None:
+            kwargs["local_device_ids"] = [
+                int(v) for v in args.local_device_ids.split(",")]
         jax.distributed.initialize(**kwargs)
     from ..utils.compile_cache import enable_persistent_cache
 

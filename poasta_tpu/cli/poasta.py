@@ -172,26 +172,24 @@ def align_subcommand(args):
     # sequence i, the device scores sequence i+1 against the current
     # graph in a background thread; fusion only adds paths, so the stale
     # score is a valid upper bound that makes the next native fill verify
-    # first-try at near-minimal band width.  Strictly best-effort: a
-    # late/failed device result falls back to the heuristic seed.
+    # first-try at near-minimal band width.  "auto" takes a seed only
+    # when it is ready (else the heuristic seed serves); "on" waits for
+    # each one.  A device failure raises.
     records = list(read_fasta(args.sequences))
     assist = None
-    if use_banded and getattr(args, "device_assist", "auto") != "off":
-        want = getattr(args, "device_assist", "auto") == "on"
+    assist_mode = getattr(args, "device_assist", "auto")
+    if use_banded and assist_mode != "off":
+        want = assist_mode == "on"
         if not want:
-            try:
-                import os as _os
+            import os as _os
 
-                import jax
+            from ..utils import backend
 
-                # the background device work is only free with a spare
-                # host core; on 1-core containers it contends with the
-                # native fill (measured: washes out the gain)
-                want = ((_os.cpu_count() or 1) >= 2
-                        and jax.default_backend() != "cpu"
-                        and any(len(s) >= 8192 for _, s in records))
-            except Exception:
-                want = False
+            # the background device work is only free with a spare
+            # host core and an accelerator to run it
+            want = ((_os.cpu_count() or 1) >= 2
+                    and backend.has_accelerator()
+                    and any(len(s) >= 8192 for _, s in records))
         if want:
             from ..aligner.fusion_assist import DeviceSeedPrefetcher
 
@@ -213,7 +211,10 @@ def align_subcommand(args):
                 # first fill verify, halving per-sequence work; a low seed
                 # just triggers the normal verify-and-retry.  A prefetched
                 # device score is a true upper bound and beats both.
-                ub_dev = assist.take(seq) if assist is not None else None
+                # "on" waits for the device seed; "auto" takes it only if
+                # it is ready
+                ub_dev = (assist.take(seq, wait=assist_mode == "on")
+                          if assist is not None else None)
                 if assist is not None and idx + 1 < len(records):
                     assist.prefetch(graph, records[idx + 1][1])
                 if ub_dev is not None:
@@ -261,6 +262,9 @@ def align_subcommand(args):
 
     if assist is not None:
         assist.close()
+        if getattr(args, "verbose", 0):
+            print(f"INFO: device-assist seeds used: {assist.seeds_used}",
+                  file=sys.stderr)
     _emit(graph, args.output_type or "poasta", args.output)
     if debug_sink is not None:
         debug_sink.close()
@@ -299,7 +303,7 @@ def stats_subcommand(args):
 
 
 def build_parser():
-    p = argparse.ArgumentParser(prog="poasta", description="Fast and exact partial order alignment (TPU-native)")
+    p = argparse.ArgumentParser(prog="poasta", description="Fast and exact partial order alignment")
     p.add_argument("-v", "--verbose", action="count", default=0)
     sub = p.add_subparsers(dest="command")
 
@@ -321,7 +325,8 @@ def build_parser():
                    help="with --engine banded: prefetch each sequence's "
                         "score on the accelerator in the background as an "
                         "exact band seed (auto: on for >=8 kb sequences "
-                        "on an accelerator backend)")
+                        "on an accelerator backend, used when ready; on: "
+                        "wait for every seed)")
     a.add_argument("--engine", default="exact", choices=["exact", "banded"],
                    help="exact: reference-parity A* (default); banded: "
                         "verify-and-retry banded fill — true optimal "

@@ -1,6 +1,6 @@
 """Flat SoA lowering of a POA graph for device kernels.
 
-The TPU wavefront engine never touches the mutable host graph: it consumes a
+The device wavefront engine never touches the mutable host graph: it consumes a
 rank-ordered structure-of-arrays view.  Nodes are laid out by topological
 rank; adjacency is CSR over ranks.  POA graphs are overwhelmingly unbranched
 chains, so the common-case predecessor of rank ``r`` is rank ``r-1``; the CSR
@@ -8,7 +8,7 @@ gather only pays for branch nodes.
 
 This replaces the reference's petgraph object + per-node hash storage
 (reference: ``src/graphs/poa.rs:85-95``, ``src/aligner/scoring/gap_affine.rs:442-466``)
-with dense arrays ready for ``lax.scan``/Pallas consumption.
+with dense arrays ready for ``lax.scan`` and kernel consumption.
 """
 
 from __future__ import annotations

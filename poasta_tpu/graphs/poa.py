@@ -24,7 +24,7 @@ framework promises byte-identical FASTA-MSA/GFA/DOT outputs:
 
 Device-side consumption goes through :meth:`POAGraph.flatten`, which lowers
 the graph to flat SoA arrays (symbols, topo ranks, CSR adjacency) — the form
-the TPU wavefront kernels operate on.  The mutable graph itself never leaves
+the device wavefront fills operate on.  The mutable graph itself never leaves
 the host; after each fusion step only the flat arrays are re-uploaded.
 """
 

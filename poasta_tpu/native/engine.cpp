@@ -4,7 +4,7 @@
 // observable semantics (same bucket-queue pop order, greedy match
 // extension, bubble pruning, and backtrace tiebreaks), built for raw
 // single-core throughput: this is the framework's native runtime for the
-// sequential graph-fusion path and the honest baseline for the TPU
+// sequential graph-fusion path and the honest baseline for the device
 // engine's speedup numbers.  (The reference implements this layer in
 // Rust; see src/aligner/astar.rs, dfa.rs, scoring/gap_affine*.rs,
 // bubbles/*.rs for the behavioural contract.)

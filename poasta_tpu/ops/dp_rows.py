@@ -32,9 +32,8 @@ import jax.numpy as jnp
 # ``jnp.int32(...)``: a module-level device scalar forces backend init
 # at import, and any ``numpy_value >= INF`` comparison on the host side
 # would build a lazy jax array whose truth test is a device round-trip
-# — ~30 ms per call on a tethered chip, measured as 16x the entire
-# anchored backtrace in the pangenome serving path.  As a weak-typed
-# int it still promotes to int32 inside jitted code.
+# on the serving path.  As a weak-typed int it still promotes to int32
+# inside jitted code.
 INF = 1 << 28
 
 

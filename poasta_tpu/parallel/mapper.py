@@ -16,8 +16,8 @@ work is laid out over a ``jax.sharding.Mesh`` with two axes:
   local ``cummin`` + ``all_gather`` of per-device totals + exclusive
   combine, the classic blocked-scan decomposition.
 
-Collectives ride ICI inside a slice; the dp axis can span hosts over DCN
-since it never communicates inside the fill.
+Collectives ride NVLink between the cards of a host; the dp axis can span
+hosts since it never communicates inside the fill.
 """
 
 from __future__ import annotations
@@ -182,39 +182,12 @@ def make_sharded_score_fn(dg: DeviceGraph, costs: GapAffine, mesh: Mesh,
     """Jitted (qshift (B, L), lengths (B,)) -> (B,) scores over the mesh.
 
     The read batch shards over ``dp``; query offsets shard over ``sp``;
-    graph arrays replicate.  When the mesh is dp-only (sp == 1) on an
-    accelerator backend, each shard runs the VMEM-resident Pallas fill
-    kernel instead of the XLA scan — no collectives are needed, so dp
-    spans hosts at single-chip kernel speed.
+    graph arrays replicate.  One-piece costs only: two-piece sharded
+    scoring runs through ``BandedScorer(mesh=...)``.
     """
-    sp_size = mesh.shape.get("sp", 1)
-    pallas_fn = None
-    if sp_size == 1 and jax.default_backend() != "cpu":
-        pallas_fn = _make_dp_pallas_score_fn(dg, costs, mesh,
-                                             free_start, free_end)
-
     if getattr(costs, "is_two_piece", False):
-        # the XLA shard body below is one-piece math; two-piece sharded
-        # scoring goes through the dp-pallas path or BandedScorer(mesh=...)
-        if pallas_fn is None:
-            raise NotImplementedError(
-                "two-piece sharded scoring needs a dp-only accelerator "
-                "mesh (or use BandedScorer(mesh=...))"
-            )
-        dp2 = mesh.shape.get("dp", 1)
-
-        def fn2p(qshift, lengths):
-            B = int(qshift.shape[0])
-            if B % dp2 or (B // dp2) % 64:
-                raise ValueError(
-                    f"two-piece sharded scoring needs the batch ({B}) to "
-                    f"split into 64-multiples across dp={dp2}; pad the "
-                    "batch or use BandedScorer(mesh=...)"
-                )
-            return pallas_fn(qshift, lengths)
-
-        return fn2p
-
+        raise NotImplementedError(
+            "two-piece sharded scoring runs through BandedScorer(mesh=...)")
     body = functools.partial(
         _sp_scan_rows,
         window=dg.window,
@@ -233,81 +206,9 @@ def make_sharded_score_fn(dg: DeviceGraph, costs: GapAffine, mesh: Mesh,
     )
 
     @jax.jit
-    def xla_fn(qshift, lengths):
+    def fn(qshift, lengths):
         return mapped(dg.symbols, dg.pred_slots, dg.pred_valid,
                       dg.write_slots, dg.end_rank, qshift, lengths)
-
-    if pallas_fn is None:
-        return xla_fn
-
-    dp = mesh.shape.get("dp", 1)
-    failed_shapes: set = set()
-
-    def fn(qshift, lengths):
-        B = int(qshift.shape[0])
-        key = (B, int(qshift.shape[1]))
-        if B % dp == 0 and (B // dp) % 64 == 0 and key not in failed_shapes:
-            try:
-                return pallas_fn(qshift, lengths)
-            except Exception:
-                # e.g. VMEM OOM at this shape: compile failures are
-                # permanent per shape — remember so streaming workloads
-                # don't re-pay the failed compile every batch
-                failed_shapes.add(key)
-        return xla_fn(qshift, lengths)
-
-    return fn
-
-
-def _make_dp_pallas_score_fn(dg, costs, mesh, free_start, free_end):
-    """shard_map around the Pallas full-fill kernel (dp-only meshes).
-
-    The caller (make_sharded_score_fn) checks batch divisibility per call
-    and falls back to the XLA body when this path can't run.
-    """
-    from ..ops import pallas_fill as pf
-
-    dp = mesh.shape.get("dp", 1)
-    two_piece = getattr(costs, "is_two_piece", False)
-
-    @functools.lru_cache(maxsize=None)
-    def inner_for(B_shard: int, L: int):
-        if two_piece:
-            blk = pf.pick_b_blk(dg.window, L, L, 4,
-                                n_rings=4 if free_end else 3)
-            while B_shard % blk:
-                blk //= 2
-            inner = pf._pallas_exec_2p(
-                B_shard // blk, dg.window, int(dg.pred_slots.shape[1]), L,
-                costs.gap_open, costs.gap_extend, costs.gap_extend2,
-                costs.mismatch, B_BLK=blk,
-                free_start=free_start, free_end=free_end)
-        else:
-            dtype = pf.score_dtype(dg.n_nodes_padded, L, costs.gap_open,
-                                   costs.gap_extend, costs.mismatch)
-            use_int16 = dtype == jnp.int16
-            n_rings = 3 if free_end else 2
-            blk = pf.pick_b_blk(dg.window, L, L, 2 if use_int16 else 4,
-                                n_rings=n_rings)
-            while B_shard % blk:
-                blk //= 2
-            inner = pf._pallas_exec(
-                B_shard // blk, dg.window, int(dg.pred_slots.shape[1]), L,
-                costs.gap_open, costs.gap_extend, costs.mismatch,
-                B_BLK=blk, use_int16=use_int16,
-                free_start=free_start, free_end=free_end)
-        return jax.jit(jax.shard_map(
-            inner,
-            mesh=mesh,
-            in_specs=(P(),) * 5 + (P("dp", None), P("dp")),
-            out_specs=P("dp"),
-        ))
-
-    def fn(qshift, lengths):
-        B, L = int(qshift.shape[0]), int(qshift.shape[1])
-        mapped = inner_for(B // dp, L)
-        return mapped(dg.symbols, dg.pred_slots_flat, dg.pred_valid_flat,
-                      dg.write_slots, dg.meta, qshift, lengths)
 
     return fn
 
@@ -338,21 +239,10 @@ class BatchMapper:
         self.aln_type = aln_type
         self.ends_free = isinstance(aln_type, EndsFree)
         self._score_fn = None
-        # per-length-profile ub hints for the capped ends-free fill
-        # ladder (see _fill_ends_free_capped)
-        self._ef_ub_hint: dict = {}
-        # k-mer seeding state (see _fill_ends_free_seeded): the index is
-        # built lazily on first eligible batch; False marks an
-        # unsupported graph so the build isn't retried per batch
-        self._seed_index = None
-        self._seed_rate = None  # (tight, wide) per-char score rates
-        # identity-cached host copy of the batch lengths: np.asarray on
-        # a tethered device array costs ~25 ms of RPC latency per call
-        self._len_cache: tuple = (None, None)
 
     def score_batch(self, queries) -> np.ndarray:
         from ..aligner.banded import BandedScorer
-        from ..aligner.wavefront import dp_fill_scores, pack_queries
+        from ..aligner.wavefront import pack_queries
 
         qshift, lengths = pack_queries(queries)
         if self.ends_free:
@@ -383,18 +273,12 @@ class BatchMapper:
         # verify-and-retry; falls back to the full fill internally when
         # banding doesn't pay)
         if getattr(self, "_scorer", None) is None:
-            try:
-                self._scorer = BandedScorer(self.flat, self.costs,
-                                            dg=self.dg)
-            except Exception:
-                self._scorer = None
-        if self._scorer is not None:
-            return np.asarray(self._scorer.scores(qshift, lengths))
-        return np.asarray(dp_fill_scores(self.dg, qshift, lengths, self.costs))
+            self._scorer = BandedScorer(self.flat, self.costs, dg=self.dg)
+        return np.asarray(self._scorer.scores(qshift, lengths))
 
-    # dense tables cost Np*B*L*12 bytes + an 11 MB/s-class D2H transfer on
-    # tethered chips; beyond this budget align_batch switches to device
-    # scores + per-read native banded backtrace
+    # dense tables cost Np*B*L*12 bytes of device memory and transfer;
+    # beyond this budget align_batch switches to device scores +
+    # per-read native banded backtrace
     DENSE_TABLE_BUDGET = 64 * 1024 * 1024
 
     def align_batch(self, queries, prescored=None):
@@ -457,348 +341,15 @@ class BatchMapper:
             out.append((int(scores[b]), aln))
         return out
 
-    def _ef_cap_enabled(self, two_piece: bool) -> bool:
-        """Whether the capped fill ladder applies: single-device, on an
-        accelerator (the XLA/mesh bodies ignore the cap — harmless, but
-        the ladder would refill identical exact scores).  Split out so
-        tests can exercise the ladder with a stubbed fill on CPU.
-        ``two_piece`` is part of the override surface; the default gate
-        caps both cost models (ins_run_cap handles each soundly)."""
-        return self.mesh is None and jax.default_backend() != "cpu"
-
-    def _fill_ends_free_capped(self, qshift, lengths, two_piece):
-        """(scores, end_ranks, end_offsets) via the bounded fill, with a
-        verify-and-retry insertion-run cap on the accelerator.
-
-        Any path of total cost <= ub has every insertion run
-        <= (ub-o)/e, so the bounded fill's L-wide prefix-min truncates
-        to ``ins_run_cap`` lanes (fewer Hillis-Steele rounds — the
-        dominant per-cell cost at pangenome read lengths).  Exactness,
-        including anchors: truncation only *raises* values, and when the
-        returned score is <= ub, the optimal path's runs all fit the cap
-        so its cells — and every true-tie end cell — are computed
-        exactly; the (largest-offset, lowest-rank) tie choice is
-        therefore identical to the uncapped fill.  Reads above ub (and
-        INF rows, which may just be capped-away) retry the whole batch
-        at 4x until the cap stops binding (subset gathers would change
-        the batch shape and recompile).  Caps apply only where the
-        Pallas path serves (engine='pallas' raises on fallback, which
-        routes to one uncapped call).  Both cost models cap —
-        ins_run_cap's two-piece bound follows the coupled recurrence's
-        run cost (o1 + extensions at >= min(e1, e2)).
-        """
-        from ..aligner.banded import LADDER_INF_SKIP, run_capped_ladder
-        from ..aligner.wavefront import INF as _INF
+    def _ends_free_scores(self, qshift, lengths):
+        """(scores, end_ranks, end_offsets) of an ends-free batch from the
+        bounded full fill (dp-sharded over the mesh when it divides)."""
         from ..aligner.wavefront import dp_fill_ends_free_with_ends
 
-        lengths_np = self._lengths_np(lengths)
-        n_min, n_max = int(lengths_np.min()), int(lengths_np.max())
-        L = int(qshift.shape[1])
-        costs = self.costs
-
-        def fill_plain():
-            sc, er, ej = dp_fill_ends_free_with_ends(
-                self.dg, self.flat, qshift, lengths, costs, self.aln_type,
-                mesh=self.mesh)
-            return np.asarray(sc), np.asarray(er), np.asarray(ej)
-
-        if not self._ef_cap_enabled(two_piece):
-            return fill_plain()
-
-        def fill_capped(cap):
-            sc, er, ej = dp_fill_ends_free_with_ends(
-                self.dg, self.flat, qshift, lengths, costs, self.aln_type,
-                engine="pallas", max_run=cap)
-            return np.asarray(sc), np.asarray(er), np.asarray(ej)
-
-        key = (n_min, n_max)
-        hint = self._ef_ub_hint.get(key)
-        if hint is not None and hint <= 0:
-            # a recent batch of this shape held INF (unalignable) rows,
-            # which no ub can verify — skip the ladder, but re-probe
-            # after the countdown so one outlier batch doesn't disable
-            # capping for the process lifetime
-            if hint < 0:
-                self._ef_ub_hint[key] = hint + 1
-            else:
-                self._ef_ub_hint.pop(key)
-            return fill_plain()
-        guess = ((costs.gap_open + costs.gap_extend) * 4
-                 + costs.mismatch * max(n_max // 16, 4))
-        out, vmax = run_capped_ladder(costs, L, hint or guess,
-                                      fill_capped, fill_plain)
-        if vmax == 0:
-            self._ef_ub_hint[key] = -LADDER_INF_SKIP  # INF rows: back off
-        elif vmax is None:
-            finite = out[0][out[0] < _INF]
-            if finite.size:
-                self._ef_ub_hint[key] = max(int(finite.max()), 1)
-        else:
-            self._ef_ub_hint[key] = vmax
-        return out
-
-    # seeding auto-engages above this graph size (the full bounded fill
-    # pays n_ranks x L per read; below this the corridor saves too few
-    # cells to beat the extra dispatch).  POASTA_SEED: "0" off, "all"
-    # every graph size, default auto.
-    SEED_MIN_NODES = 8192
-
-    def _ends_free_scores(self, queries, qshift, lengths, two_piece):
-        """(scores, end_ranks, end_offsets): seeded corridor fill when
-        provably exact and profitable, full bounded fill otherwise and
-        for the unresolved tail.  The seed ub hint is learned from each
-        batch's observed scores either way."""
-        import os
-
-        mode = os.environ.get("POASTA_SEED", "")
-        out = None
-        if mode != "0" and not two_piece and self.mesh is None:
-            try:
-                out = self._fill_ends_free_seeded(queries, qshift,
-                                                  lengths, mode)
-            except Exception:
-                if os.environ.get("POASTA_SEED_DEBUG"):
-                    raise
-                out = None
-        if out is None:
-            out = self._fill_ends_free_capped(qshift, lengths, two_piece)
-            if mode != "0" and not two_piece:
-                self._learn_seed_ub(lengths, out[0])
-        return out
-
-    def _lengths_np(self, lengths):
-        if self._len_cache[0] is lengths:
-            return self._len_cache[1]
-        lengths_np = np.asarray(lengths)
-        self._len_cache = (lengths, lengths_np)
-        return lengths_np
-
-    def _host_jlo(self, lengths_np):
-        """Host mirror of ends_free_device_params' jlo (one-piece):
-        avoids a per-call device->host fetch of the device jlo array."""
-        li = lengths_np.astype(np.int64)
-        qkind, qval = self.aln_type.qry_free_end
-        if qkind == "unbounded":
-            return np.minimum(li, 1)
-        if qkind == "included":
-            return np.maximum(li - qval, 0)
-        return np.maximum(li - qval + 1, 0)
-
-    def _learn_seed_ub(self, lengths, scores):
-        """Learn per-CHARACTER score rates from this batch's scores.
-
-        Rates, not absolute scores: streaming batches are length-sorted,
-        so every batch has a fresh (n_min, n_max) — an absolute-ub hint
-        keyed by it never transfers and seeding would only ever engage
-        on repeated identical batches (found via the lasagna CLI e2e).
-        Per-read ubs then scale with each read's own length.
-
-        ``tight`` (p95 rate + ~6%) sizes the first-tier corridor margin
-        (and with it Wb, the dominant per-cell cost); reads above it
-        retry at ``wide`` (p90 rate + 25%) corridors; only reads above
-        THAT pay the full fill.  Percentile bases keep one garbage read
-        from blowing the corridor width for every future batch."""
-        lengths_np = self._lengths_np(lengths)
-        sc = np.asarray(scores, dtype=np.float64)
-        ln = np.maximum(lengths_np.astype(np.float64), 1.0)
-        ok = sc < INF
-        if ok.any():
-            rates = np.sort(sc[ok] / ln[ok])
-            q90 = rates[int(0.9 * (rates.size - 1))]
-            q95 = rates[int(0.95 * (rates.size - 1))]
-            wide = q90 * 1.25
-            tight = min(q95 * 1.0625, wide)
-            self._seed_rate = (tight, wide)
-
-    def _fill_ends_free_seeded(self, queries, qshift, lengths, mode):
-        """Exact (scores, end_ranks, end_offsets) via k-mer seeded
-        corridors; None when ineligible — no ub hint yet, graph
-        unsupported — so the caller full-fills.
-
-        Post-hoc certification (aligner/seeds.py): corridors are a
-        GUESS built from each read's dominant hit cluster; after the
-        corridor fill (ops/pallas_seed.py) returns score s_b, the
-        interruption-counting certificate proves — at c = s_b, not the
-        a-priori ub — that no alignment outside the corridor can score
-        <= s_b.  Certified reads are bit-identical to the full fill
-        (score AND end-state tie-breaks); everything else (no cluster,
-        unverified score, failed certificate) joins the fallback tail.
-
-        This is the batch analogue of the reference A*'s
-        work-proportional-to-score property for MAPPING spans (free
-        graph begin), where banding/drift cannot narrow the fill
-        (corner-anchored corridors): per-read work becomes
-        span x corridor-width instead of n_ranks x L."""
-        from ..aligner.seeds import (
-            KmerIndex,
-            certify_reads,
-            propose_clusters,
-            subset_hits,
-        )
-        from ..aligner.wavefront import (
-            ends_free_device_params,
-            pack_queries,
-        )
-        from ..ops import pallas_seed as ps
-        from ..ops.pallas_fill import _interpret_mode
-
-        if jax.default_backend() == "cpu" and not _interpret_mode():
-            return None
-        n = self.flat.n_nodes
-        if mode != "all" and n < self.SEED_MIN_NODES:
-            return None
-        free_start, end_ok, _ = ends_free_device_params(
-            self.flat, self.aln_type, lengths, self.dg.n_nodes_padded,
-            with_jlo=False)
-        if not free_start:
-            # bounded graph begins anchor at the start node; the drift /
-            # banded machinery already narrows those fills
-            return None
-        lengths_np = self._lengths_np(lengths)
-        rate = getattr(self, "_seed_rate", None)
-        if rate is None:
-            return None  # the first batch learns the score rates
-        e = self.costs.gap_extend
-        if e <= 0:
-            return None
-        if self._seed_index is None:
-            self._seed_index = KmerIndex(self.flat)
-        idx = self._seed_index
-        if not idx.ok:
-            return None
-        jlo_pre = self._host_jlo(lengths_np)
-        # necessary certificate condition at ANY achieved score c >= 0:
-        # T(c) <= T(0) = jlo - (k-1), so jlo <= k-1 (e.g. the reference's
-        # unbounded-qry-end offset>0 quirk, jlo ~ 1) can never certify —
-        # skip the corridor fill outright
-        if not (jlo_pre - (idx.k - 1) > 0).any():
-            return None
-        import time as _time
-
-        t0 = _time.perf_counter()
-        q_np, _ = pack_queries(queries, pad_to=int(qshift.shape[1]) - 1,
-                               place_on_device=False)
-        hits = idx.seed_hits(q_np, lengths_np)
-        if hits is None:
-            return None  # repeat blowup
-        B = lengths_np.shape[0]
-        pad_c = 2 * self.costs.mismatch
-        ub_tight_np = (rate[0] * lengths_np + pad_c).astype(np.int64)
-        ub_wide_np = (rate[1] * lengths_np + pad_c).astype(np.int64)
-        ub_tight_np = np.minimum(ub_tight_np, ub_wide_np)
-        # one proposal (wide window tolerates every drift the wide tier
-        # admits); only the corridor MARGIN differs between tiers
-        K_wide = ub_wide_np // e
-        a_star, b_star, n_cluster = propose_clusters(hits, K_wide)
-        t_hits = _time.perf_counter() - t0
-        seedable = (n_cluster > 0) & hits.clean
-        if not seedable.any():
-            return None
-        jlo_np = jlo_pre
-        sc = np.full(B, INF, dtype=np.int64)
-        er = np.zeros(B, dtype=np.int64)
-        ej = np.zeros(B, dtype=np.int64)
-        resolved = np.zeros(B, dtype=bool)
-        t_fill = t_cert = 0.0
-        n_cert_failed = n_unverified = 0
-        attempts = 0
-        # two-tier corridor ladder: the tight tier (p95 rate + ~6%
-        # headroom) keeps the margin — and with it Wb, the per-cell
-        # cost — small; the occasional above-tight read retries at the
-        # wide tier's corridor (still ~5x cheaper than the full bounded
-        # fill) before anything falls back
-        tiers = [ub_tight_np]
-        if (ub_wide_np > ub_tight_np).any():
-            tiers.append(ub_wide_np)
-        for t_i, ub_arr in enumerate(tiers):
-            is_wide = t_i == len(tiers) - 1
-            active = seedable & ~resolved
-            if not active.any():
-                break
-            act_idx = np.nonzero(active)[0]
-            if act_idx.size == B:
-                idxpad = act_idx
-                q_sub, hits_sub = qshift, hits
-                l_sub, jlo_sub = lengths_np, jlo_np
-                a_sub, b_sub = (np.where(seedable, a_star, 0),
-                                np.where(seedable, b_star, 0))
-            else:
-                pad_to = max(8, -(-act_idx.size // 8) * 8)
-                idxpad = np.resize(act_idx, pad_to)
-                q_sub = jnp.take(jnp.asarray(qshift),
-                                 jnp.asarray(idxpad.astype(np.int32)),
-                                 axis=0)
-                hits_sub = subset_hits(hits, idxpad)
-                l_sub = lengths_np[idxpad]
-                jlo_sub = jlo_np[idxpad]
-                a_sub = a_star[idxpad]
-                b_sub = b_star[idxpad]
-            ub_sub = ub_arr[idxpad]
-            t0 = _time.perf_counter()
-            res = ps.pallas_seed_scores(
-                self.dg, self.flat, q_sub, l_sub, self.costs, free_start,
-                end_ok, jlo_sub, a_sub, b_sub, ub_sub)
-            t_fill += _time.perf_counter() - t0
-            if res is None:
-                break  # width budget: a wider tier cannot help
-            attempts += 1
-            s_s, er_s, ej_s, ok_s = res
-            t0 = _time.perf_counter()
-            verified = ok_s & (s_s <= ub_sub)
-            cert_in = np.where(verified, s_s, -1)
-            certified, _T = certify_reads(
-                hits_sub, a_sub, b_sub, cert_in, ub_sub // e, idx.k,
-                jlo_sub, self.costs, idx.all_acgt)
-            t_cert += _time.perf_counter() - t0
-            done = verified & certified
-            # duplicate padded rows resolve the same read identically
-            sc[idxpad[done]] = s_s[done]
-            er[idxpad[done]] = er_s[done]
-            ej[idxpad[done]] = ej_s[done]
-            resolved[idxpad[done]] = True
-            if is_wide:
-                # stats over the DISTINCT reads only (np.resize pads the
-                # subset by cycling it, so raw sums overcount dupes)
-                nd = act_idx.size
-                n_cert_failed = int((verified & ~certified)[:nd].sum())
-                n_unverified = int((ok_s & ~verified)[:nd].sum())
-        stats = {"seeded": int(resolved.sum()),
-                 "seed_tail": int((~resolved).sum()),
-                 "seed_ub": [round(float(rate[0]), 4),
-                             round(float(rate[1]), 4)], "seed_k": idx.k,
-                 "seed_attempts": attempts,
-                 "cert_failed": n_cert_failed,
-                 "unverified": n_unverified,
-                 "no_cluster": int((~seedable).sum()),
-                 "hits_s": round(t_hits, 4), "fill_s": round(t_fill, 4),
-                 "cert_s": round(t_cert, 4)}
-        self.last_seed_stats = stats
-        if not resolved.any():
-            return None
-        tail = np.nonzero(~resolved)[0]
-        if tail.size:
-            pad_to = -(-tail.size // 64) * 64
-            idx_pad = np.resize(tail, pad_to)
-            idx_dev = jnp.asarray(idx_pad)
-            q_sub = jnp.take(qshift, idx_dev, axis=0)
-            l_sub = jnp.take(lengths, idx_dev, axis=0)
-            sc2, er2, ej2 = self._fill_ends_free_capped(q_sub, l_sub,
-                                                        False)
-            ts = tail.size
-            sc[tail] = sc2[:ts]
-            er[tail] = er2[:ts]
-            ej[tail] = ej2[:ts]
-        self._learn_seed_ub(lengths, sc)
-        return sc, er, ej
-
-    def _seed_len_cache(self, queries, lengths):
-        """Pre-seed the host lengths cache from the raw reads: each
-        align_batch call packs a FRESH device lengths array, so the
-        identity cache would miss every call and np.asarray(lengths)
-        would pay a ~25 ms tether fetch per batch."""
-        self._len_cache = (lengths, np.fromiter(
-            (len(q) for q in queries), dtype=np.int64,
-            count=len(queries)))
+        sc, er, ej = dp_fill_ends_free_with_ends(
+            self.dg, self.flat, qshift, lengths, self.costs, self.aln_type,
+            mesh=self.mesh)
+        return np.asarray(sc), np.asarray(er), np.asarray(ej)
 
     def _align_batch_ends_free(self, queries, qshift, lengths, two_piece,
                                pre_scores=None):
@@ -813,7 +364,6 @@ class BatchMapper:
         unavailable (small shapes only)."""
         from ..aligner.wavefront import (
             backtrace_dense_ends_free,
-            dp_fill_ends_free_with_ends,
             dp_fill_full,
             ends_free_device_params,
         )
@@ -835,45 +385,16 @@ class BatchMapper:
             import time
             from concurrent.futures import ThreadPoolExecutor
 
-            self._seed_len_cache(queries, lengths)
             t0 = time.perf_counter()
             if pre_scores is not None:
                 sc, er, ej = pre_scores  # scored by prescore() already
             else:
-                sc, er, ej = self._ends_free_scores(queries, qshift,
-                                                    lengths, two_piece)
+                sc, er, ej = self._ends_free_scores(qshift, lengths)
             stats = self.last_ends_free_stats = {
                 "device_s": time.perf_counter() - t0,
                 "anchored_ok": 0, "exact_fallback": 0, "host_s": 0.0,
-                "device_traced": 0,
             }
             node_of_rank = self.flat.node_of_rank
-
-            # device traceback first (one-piece): the anchored corridor
-            # refill + decode runs on the chip; reads the widest tier
-            # can't verify fall through to the host corridor below
-            traced = [None] * len(queries)
-            if not two_piece:
-                try:
-                    from ..ops.pallas_trace import (
-                        pallas_trace_align,
-                        trace_enabled,
-                    )
-
-                    if trace_enabled(self.dg):
-                        t1 = time.perf_counter()
-                        traced = pallas_trace_align(
-                            self.dg, self.flat, qshift, lengths,
-                            self.costs, sc, anchor_r=er, anchor_j=ej,
-                            free_start=free_start)
-                        stats["device_s"] += time.perf_counter() - t1
-                        stats["device_traced"] = sum(
-                            a is not None for a in traced)
-                except Exception as exc:
-                    if os.environ.get("POASTA_TRACE_DEBUG"):
-                        raise
-                    stats["trace_error"] = f"{type(exc).__name__}: {exc}"
-                    traced = [None] * len(queries)
 
             def one(args):
                 b, q = args
@@ -881,8 +402,6 @@ class BatchMapper:
                     raise RuntimeError(
                         "ends-free alignment: unsatisfiable bounds"
                     )
-                if traced[b] is not None:
-                    return "anchored_ok", (int(sc[b]), traced[b])
                 try:
                     out = native.align_anchored(
                         q, self.costs, int(node_of_rank[er[b]]),
@@ -955,26 +474,24 @@ class BatchMapper:
         the native library is unavailable (dense fallback)."""
         if getattr(self, "_native", None) is not None:
             return True
+        from ..aligner.banded import BandedScorer
+
         try:
             from ..native import NativeAligner
 
-            from ..aligner.banded import BandedScorer
-
             native = NativeAligner(self.graph)
-            # device scorer seeds each read's band with its exact score;
-            # both cost models route through it — BandedScorer serves 2p
-            # via the 5-state banded kernels (ops/pallas_fill.py
-            # pallas_banded_scores_2p / pallas_banded_scores_drift_2p)
-            self._banded_scorer = BandedScorer(self.flat, self.costs,
-                                               mesh=self.mesh,
-                                               dg=self.dg)
-            # cache only once every required object constructed — a
-            # partial init would skip this block next call and crash on
-            # the missing scorer instead of falling back to dense
-            self._native = native
-            return True
         except Exception:
-            return False
+            return False  # no native engine: dense fallback
+        # device scorer seeds each read's band with its exact score;
+        # both cost models route through it (two-piece via the 5-state
+        # XLA banded bodies)
+        self._banded_scorer = BandedScorer(self.flat, self.costs,
+                                           mesh=self.mesh, dg=self.dg)
+        # cache only once every required object constructed — a
+        # partial init would skip this block next call and crash on
+        # the missing scorer instead of falling back to dense
+        self._native = native
+        return True
 
     def _device_scores(self, qshift, lengths, two_piece):
         """The scoring phase of the banded path (device-side; the
@@ -987,12 +504,8 @@ class BatchMapper:
         """Whether prescore() can overlap device scoring with host
         backtraces for this batch (the lasagna pipeline gate)."""
         if self.ends_free:
-            # the ends-free scoring phase is ~half host-side work
-            # (k-mer hits / cluster proposal numpy); on a one-core host
-            # overlapping it against the backtrace pool just thrashes
-            # the GIL (measured: 4x128 pipelined at 71 reads/s vs 205
-            # unpipelined, scripts/pangenome_bigbatch.py) — pipeline
-            # only where a second core can actually run it
+            # overlapping the scoring thread with the backtrace pool
+            # needs a second host core
             import os
 
             return (os.cpu_count() or 1) > 1
@@ -1025,7 +538,7 @@ class BatchMapper:
 
         two_piece = getattr(self.costs, "is_two_piece", False)
         if self.ends_free:
-            # ends-free scoring phase (seeded corridors / capped fill):
+            # ends-free scoring phase (the bounded full fill):
             # overlapping it with the previous batch's native backtraces
             # is the same reader/aligner/writer overlap the reference's
             # lasagna gets from threads (lasagna.rs:217-273)
@@ -1039,9 +552,7 @@ class BatchMapper:
             except Exception:
                 return None  # dense fallback path: nothing to overlap
             qshift, lengths = pack_queries(queries)
-            self._seed_len_cache(queries, lengths)
-            sc = self._ends_free_scores(queries, qshift, lengths,
-                                        two_piece)
+            sc = self._ends_free_scores(qshift, lengths)
             return (queries, sc, qshift, lengths)
         if (not self.takes_banded_path(queries)
                 or not self._init_banded(two_piece)):
@@ -1062,49 +573,16 @@ class BatchMapper:
         if scores is None:
             scores = self._device_scores(qshift, lengths, two_piece)
 
-        # device traceback first (one-piece): the pointer-emitting
-        # corridor kernel + batched decode reconstructs every verified
-        # read's alignment on the chip, byte-identical to the native
-        # backtrace (tests/test_trace.py); unverified reads (or 2p)
-        # fall through to the host path below
-        out = [None] * len(queries)
-        self.last_banded_stats = {"device_traced": 0, "host_backtraced": 0}
-        if not two_piece:
-            try:
-                from ..ops.pallas_trace import (
-                    pallas_trace_align,
-                    trace_enabled,
-                )
+        # both cost models: the device score is exact (banded
+        # verify-and-retry), so it seeds the native band AND certifies
+        # the backtrace
+        def one(b):
+            score, aln = na.align_banded(queries[b], self.costs,
+                                         ub=int(scores[b]))
+            assert score == int(scores[b]), (score, int(scores[b]))
+            return score, aln
 
-                if trace_enabled(self.dg):
-                    traced = pallas_trace_align(self.dg, self.flat,
-                                                qshift, lengths,
-                                                self.costs, scores)
-                    for b, aln in enumerate(traced):
-                        if aln is not None:
-                            out[b] = (int(scores[b]), aln)
-                            self.last_banded_stats["device_traced"] += 1
-            except Exception as exc:
-                # host path serves the whole batch
-                if os.environ.get("POASTA_TRACE_DEBUG"):
-                    raise
-                self.last_banded_stats["trace_error"] = (
-                    f"{type(exc).__name__}: {exc}")
-
-        rest = [b for b in range(len(queries)) if out[b] is None]
-        if rest:
-            # both cost models: the device score is exact (banded
-            # verify-and-retry), so it seeds the native band AND
-            # certifies the backtrace
-            def one(b):
-                score, aln = na.align_banded(queries[b], self.costs,
-                                             ub=int(scores[b]))
-                assert score == int(scores[b]), (score, int(scores[b]))
-                return score, aln
-
-            self.last_banded_stats["host_backtraced"] = len(rest)
-            workers = max(1, min(len(rest), os.cpu_count() or 4))
-            with ThreadPoolExecutor(max_workers=workers) as pool:
-                for b, res in zip(rest, pool.map(one, rest)):
-                    out[b] = res
-        return out
+        self.last_banded_stats = {"host_backtraced": len(queries)}
+        workers = max(1, min(len(queries), os.cpu_count() or 4))
+        with ThreadPoolExecutor(max_workers=workers) as pool:
+            return list(pool.map(one, range(len(queries))))

@@ -1,33 +1,40 @@
-"""Persistent JAX compilation cache for the CLI / bench entry points.
+"""Persistent JAX compilation cache for the CLI, bench and smoke entry points.
 
-First-compile latency on TPU is tens of seconds per kernel configuration;
-the persistent cache cuts a repeat cold start to ~1 s (measured 13.5 s ->
-1.1 s).  Enabled by the CLIs and bench — not on package import, so
-library users keep full control.  Set POASTA_TPU_NO_COMPILE_CACHE=1 to
-opt out; an existing user configuration (env var or jax config) wins.
+If ``JAX_COMPILATION_CACHE_DIR`` is set, JAX reads it and nothing is set
+here.  Otherwise the cache lives at one fixed path inside the checkout,
+``<repo>/.jax_cache`` (git-ignored): the path is part of the cache key,
+so a directory that moved would never hit.  Enabled by the entry points,
+not on package import, so library users keep full control; an existing
+``jax_compilation_cache_dir`` setting wins, and
+``POASTA_TPU_NO_COMPILE_CACHE=1`` opts out.
 """
 
 from __future__ import annotations
 
 import os
 
+CACHE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__)))), ".jax_cache")
+
+
+def cache_dir_for(environ) -> "str | None":
+    """Directory this module configures: None when the environment
+    already decides (``JAX_COMPILATION_CACHE_DIR``) or opts out."""
+    if environ.get("POASTA_TPU_NO_COMPILE_CACHE"):
+        return None
+    if environ.get("JAX_COMPILATION_CACHE_DIR"):
+        return None
+    return CACHE_DIR
+
 
 def enable_persistent_cache() -> None:
-    if os.environ.get("POASTA_TPU_NO_COMPILE_CACHE"):
-        return
-    if os.environ.get("JAX_COMPILATION_CACHE_DIR"):
-        return  # user already configured it via env
-    try:
-        import jax
+    import jax
 
-        if jax.config.jax_compilation_cache_dir:
-            return  # user already configured it via the config API
-        cache_dir = os.path.join(
-            os.path.expanduser("~"), ".cache", "poasta_tpu", "jax"
-        )
-        os.makedirs(cache_dir, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", cache_dir)
-        jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1)
-    except Exception:
-        pass  # never let cache setup break the program
+    cache_dir = cache_dir_for(os.environ)
+    if cache_dir is None or jax.config.jax_compilation_cache_dir:
+        return
+    os.makedirs(cache_dir, exist_ok=True)
+    jax.config.update("jax_compilation_cache_dir", cache_dir)
+    jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1)

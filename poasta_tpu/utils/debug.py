@@ -78,7 +78,7 @@ class DebugOutputWriter:
 
 
 def dump_wavefront_tsv(flat, M, I, D, path) -> None:
-    """Write the TPU wavefront fill's dense score tables as debug TSV.
+    """Write the device wavefront fill's dense score tables as debug TSV.
 
     Same schema as the exact engine's dumps (``node_id/offset/matrix/
     score``; reference ``gap_affine.rs:659-698``), so ``tools/plot_dp``

@@ -2,7 +2,7 @@
 
 
 class PoastaError(Exception):
-    """Base error for the TPU POA framework."""
+    """Base error for the POA framework."""
 
 
 class InvalidAlignmentError(PoastaError):

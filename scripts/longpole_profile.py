@@ -87,7 +87,7 @@ def main():
     from poasta_tpu.aligner.wavefront import pack_queries
 
     qshift, lengths = pack_queries(preads)
-    sc, er, ej = pmap._fill_ends_free_capped(qshift, lengths, False)
+    sc, er, ej = pmap._ends_free_scores(qshift, lengths)
     agg = {"corridor_ns": 0, "fill_ns": 0, "backtrace_ns": 0,
            "corridor_cells": 0, "attempts": 0}
     t0 = time.perf_counter()

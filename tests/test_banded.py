@@ -42,7 +42,7 @@ def test_banded_matches_full():
     flat = g.flatten()
     dg = DeviceGraph.build(flat)
     qshift, lengths = pack_queries(reads)
-    ref = np.asarray(dp_fill_scores(dg, qshift, lengths, COSTS, engine="xla"))
+    ref = np.asarray(dp_fill_scores(dg, qshift, lengths, COSTS))
     out = BandedScorer(flat, COSTS).scores(qshift, lengths)
     assert (out == ref).all()
 
@@ -53,7 +53,7 @@ def test_banded_tiny_ub_still_exact():
     flat = g.flatten()
     dg = DeviceGraph.build(flat)
     qshift, lengths = pack_queries(reads)
-    ref = np.asarray(dp_fill_scores(dg, qshift, lengths, COSTS, engine="xla"))
+    ref = np.asarray(dp_fill_scores(dg, qshift, lengths, COSTS))
     out = BandedScorer(flat, COSTS).scores(qshift, lengths, ub=4)
     assert (out == ref).all()
 
@@ -253,54 +253,17 @@ def test_quantile_retry_heterogeneous_exact():
         flat = g.flatten()
         dg = DeviceGraph.build(flat)
         qshift, lengths = pack_queries(reads)
-        ref = np.asarray(dp_fill_scores(dg, qshift, lengths, COSTS,
-                                        engine="xla"))
+        ref = np.asarray(dp_fill_scores(dg, qshift, lengths, COSTS))
         sc = BandedScorer(flat, COSTS)
         sc.TIER_OVERHEAD_CELLS = 0  # always allow the split on tiny graphs
         out = sc.scores(qshift, lengths, ub=8, max_retries=8)
         assert (out == ref).all()
 
 
-def test_ins_run_cap_window_math():
-    """The truncated prefix-min must cover exactly the runs an <=ub path
-    can contain: sliding-window min oracle vs _prefix_min_trunc, and the
-    cap formula's power-of-two coverage."""
-    import jax.numpy as jnp
-
-    from poasta_tpu.aligner.banded import _prefix_min_trunc, ins_run_cap
-
-    rng = np.random.default_rng(5)
-    t = rng.integers(-1000, 1000, size=(4, 257), dtype=np.int32)
-    for max_run in (1, 2, 8, 64, 256):
-        got = np.asarray(_prefix_min_trunc(jnp.asarray(t), max_run, 4))
-        for j in range(t.shape[1]):
-            lo = max(0, j - max_run + 1)
-            assert got[:, j].tolist() == t[:, lo:j + 1].min(axis=1).tolist()
-
-    # cap covers K = (ub-o)//e insertion lanes (runs of length <= cap
-    # after the pref_m1 shift), and degenerates to 0 when not narrower
-    assert ins_run_cap(COSTS, 6 + 2 * 100 + 0, 1 << 20) == 128
-    assert ins_run_cap(COSTS, 6 + 2 * 128, 1 << 20) == 128
-    assert ins_run_cap(COSTS, 6 + 2 * 129, 1 << 20) == 256
-    assert ins_run_cap(COSTS, 4, 1 << 20) == 1  # ub < o+e: 1-lane window
-    assert ins_run_cap(COSTS, 1 << 10, 64) == 0  # cap >= width: full scan
-    from poasta_tpu.aligner import GapAffine2Piece
-
-    # two-piece: the coupled recurrence opens at o1+e1 and extends at
-    # >= min(e1, e2) with NO gap_open2 charge on the I1->I2 switch, so
-    # the sound bound is (ub-o1)//min(e1,e2) — a gap_open2-based bound
-    # would under-count (review finding, round 3)
-    assert ins_run_cap(GapAffine2Piece(4, 2, 6, 1, 24), 1000, 1 << 20) \
-        == 1024  # K = (1000-6)//1 = 994 -> 1024
-    assert ins_run_cap(GapAffine2Piece(4, 2, 6, 1, 200), 100, 1 << 20) \
-        == 128  # K = (100-6)//1 = 94 -> 128: o2 plays no role
-
-
 def test_long_insertion_reads_stay_exact_with_run_cap():
-    """Reads carrying insertion runs near the tier's K bound: the ladder
-    must stay exact through the truncated prefix-min (runs longer than
-    the current tier's cap push the score past ub, forcing a retry at a
-    wider cap — never a wrong verified score)."""
+    """Reads carrying long insertion runs, started at a tiny ub: runs the
+    first tiers' bands cannot hold push the score past ub and force a
+    retry at a wider band — never a wrong verified score."""
     rng = random.Random(23)
     base = "".join(rng.choice("ACGT") for _ in range(2500))
     g = POAGraph()
@@ -318,17 +281,9 @@ def test_long_insertion_reads_stay_exact_with_run_cap():
     flat = g.flatten()
     dg = DeviceGraph.build(flat)
     qshift, lengths = pack_queries(reads)
-    ref = np.asarray(dp_fill_scores(dg, qshift, lengths, COSTS,
-                                    engine="xla"))
-    import poasta_tpu.aligner.banded as bd
-
-    bd.FORCE_TRUNC_ON_CPU = True  # exercise the truncated rounds on CPU
-    try:
-        # tiny initial ub: first tiers run with caps below the true runs
-        out = BandedScorer(flat, COSTS, dg=dg).scores(qshift, lengths,
-                                                      ub=30)
-    finally:
-        bd.FORCE_TRUNC_ON_CPU = False
+    ref = np.asarray(dp_fill_scores(dg, qshift, lengths, COSTS))
+    # tiny initial ub: the first tiers' bands are narrower than the runs
+    out = BandedScorer(flat, COSTS, dg=dg).scores(qshift, lengths, ub=30)
     assert (out == ref).all(), (out, ref)
 
 

@@ -340,17 +340,3 @@ def test_randomized_costs_banding_exact(seed):
     got_e = np.asarray(BandedScorer(flat, costs, dg=dg,
                                     aln_type=cfg).scores(qshift, lengths))
     assert (got_e == oracle_e).all()
-
-
-def test_truncated_prefix_min_exact_on_drift_paths():
-    """Force the TPU insertion-run cap on CPU and re-run one drift and
-    one drift x bounded-ends-free case: the truncated rounds must stay
-    exact through the ladder on every XLA body variant."""
-    import poasta_tpu.aligner.banded as bd
-
-    bd.FORCE_TRUNC_ON_CPU = True
-    try:
-        test_drift_scores_exact_on_sv_graph(2)
-        test_drift_bounded_ends_free_exact(12)
-    finally:
-        bd.FORCE_TRUNC_ON_CPU = False

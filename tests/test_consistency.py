@@ -2,7 +2,7 @@
 
 Every engine must agree on the optimal score for random graphs, random
 reads, and random cost models: python exact (dijkstra oracle), native
-exact, native banded, the TPU full fill, and the banded scorer.  This is
+exact, native banded, the device full fill, and the banded scorer.  This is
 the reference's three-heuristics invariant (tests/test_heuristics.rs)
 widened across all execution paths.
 """

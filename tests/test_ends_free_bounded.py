@@ -1,10 +1,9 @@
-"""Bounded ends-free on the device path (VERDICT r1 missing #2 / next #3).
+"""Bounded ends-free on the device path.
 
 The exact host engines have carried Included/Excluded free-end bounds
 since round 1; these tests pin the new device coverage:
 
-* ``dp_fill_scores_ends_free`` — bounded full fill (XLA body; the Pallas
-  twin is validated on-chip by run_tpu_tests.py),
+* ``dp_fill_scores_ends_free`` — bounded full fill (XLA body),
 * ``BandedScorer(aln_type=EndsFree(...))`` — bounded ends-free banding
   with verify-and-retry exactness,
 

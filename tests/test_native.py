@@ -140,7 +140,7 @@ def test_batch_mapper_banded_path():
 
 def test_native_banded_two_piece_optimal():
     # the banded dense fill returns the TRUE two-piece optimum (like the
-    # TPU engine), which the exact engines' inadmissible 2p mingap may
+    # device engine), which the exact engines' inadmissible 2p mingap may
     # miss — so the oracle here is dijkstra (admissible)
     costs2 = GapAffine2Piece(4, 2, 8, 1, 24)
     g, queries = _case(6, length=60)

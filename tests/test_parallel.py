@@ -141,6 +141,45 @@ def test_sharded_banded_scorer_matches_oracle(dp, sp, long_read_case):
     assert list(np.asarray(sharded)) == oracle
 
 
+@pytest.mark.parametrize("dp,sp", [(8, 1), (4, 2)])
+def test_sharded_banded_scorer_runs_cuda_executor_per_shard(
+        dp, sp, long_read_case, monkeypatch):
+    """Under a mesh the GPU executor runs inside shard_map, one call per
+    shard on that shard's reads.  A stand-in with the CUDA call's
+    signature (the XLA body over the same tables) takes its place here."""
+    if jax.device_count() < dp * sp:
+        pytest.skip("needs 8 virtual devices")
+    import jax.numpy as jnp
+
+    from poasta_tpu.aligner import banded as bd
+    from poasta_tpu.ops import banded_fill as bf
+
+    rows = []
+
+    def stand_in(n_nodes, W, Wb, o, e, x, S, mq, n_min, free_start, ef):
+        def fn(symbols, pred_slots, pred_valid, pred_wstarts, wstarts,
+               write_slots, end_ok, s_ranks, q, lengths, jlo):
+            rows.append(int(q.shape[0]))
+            body = bf.xla_banded_exec(W, Wb, int(pred_slots.shape[1]), o, e,
+                                      x, S, ef, free_start,
+                                      vary_axes=("dp",))
+            return body(symbols, pred_slots, pred_valid, pred_wstarts,
+                        wstarts, write_slots, jnp.int32(n_nodes - 1),
+                        end_ok, s_ranks, q, lengths, jlo, jnp.int32(n_min),
+                        jnp.int32(mq))
+        return fn
+
+    monkeypatch.setattr(bd, "cuda_banded_exec", stand_in)
+    g, queries, oracle = long_read_case
+    mesh = make_mesh(devices=jax.devices()[: dp * sp], dp=dp, sp=sp)
+    qshift, lengths = pack_queries(queries)
+    scorer = bd.BandedScorer(g.flatten(), COSTS, mesh=mesh)
+    scorer.executor = "cuda"
+    assert list(np.asarray(scorer.scores(qshift, lengths))) == oracle
+    assert rows and set(rows) == {len(queries) // dp}
+    assert scorer.stats["xla_fills"] == 0
+
+
 def test_batch_mapper_two_piece_mesh_scores():
     # regression: the plain sharded body is one-piece math; 2p mesh
     # scoring must route through the sharded banded scorer
@@ -168,8 +207,7 @@ def test_sharded_free_ends_match_single_device(fs, fe):
     fn = make_sharded_score_fn(dg, COSTS, mesh, free_start=fs, free_end=fe)
     sharded = np.asarray(fn(qshift, lengths))
     single = np.asarray(dp_fill_scores(dg, qshift, lengths, COSTS,
-                                       free_start=fs, free_end=fe,
-                                       engine="xla"))
+                                       free_start=fs, free_end=fe))
     assert (sharded == single).all()
 
 
@@ -226,11 +264,10 @@ def test_pipelined_flush_matches_serial_batches():
 
 
 def test_two_piece_align_batch_seeds_from_banded_scores(monkeypatch):
-    # regression (VERDICT r3 weak #2): global 2p align_batch must seed
-    # its native backtraces from BANDED device scores — the 5-state
-    # banded kernels exist (ops/pallas_fill.py pallas_banded_scores_2p)
-    # and BandedScorer routes 2p through them; paying full-fill cells
-    # here was stale wiring
+    # regression: global 2p align_batch must seed its native backtraces
+    # from BANDED device scores — BandedScorer routes 2p through the
+    # 5-state banded XLA bodies; paying full-fill cells here was stale
+    # wiring
     from poasta_tpu.aligner import GapAffine2Piece
 
     costs2 = GapAffine2Piece(4, 2, 8, 1, 24)

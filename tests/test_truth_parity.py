@@ -84,7 +84,7 @@ def test_graph_reuse_from_imported_msa(reference_tests_dir):
             if n not in have]
     assert rest, "expected unaligned sequences beyond the half MSA"
     aligner = PoastaAligner(COSTS, Global(), heuristic="mingap")
-    # TPU scores match the exact engine on the imported graph, and fusion
+    # device scores match the exact engine on the imported graph, and fusion
     # of the remaining sequences succeeds
     dg = DeviceGraph.build(g.flatten())
     qshift, lengths = pack_queries([s for _, s in rest])

@@ -1,4 +1,4 @@
-"""TPU wavefront engine vs the exact host oracle."""
+"""Device wavefront engine vs the exact host oracle."""
 
 import random
 

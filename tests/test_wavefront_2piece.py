@@ -53,12 +53,12 @@ def test_two_piece_scores_match_dijkstra_oracle(seed):
     g, queries = _case(seed)
     dg = DeviceGraph.build(g.flatten())
     qshift, lengths = pack_queries(queries)
-    tpu = np.asarray(dp_fill_scores(dg, qshift, lengths, COSTS2))
+    dev = np.asarray(dp_fill_scores(dg, qshift, lengths, COSTS2))
     oracle = [
         PoastaAligner(COSTS2, Global(), heuristic="dijkstra").align(g, q).score
         for q in queries
     ]
-    assert list(tpu) == oracle
+    assert list(dev) == oracle
 
 
 def test_two_piece_prefers_long_gap_second_piece():
